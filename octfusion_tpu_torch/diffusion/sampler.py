@@ -1,5 +1,6 @@
-"""Continuous-time ancestral sampler
-(port of ``sample_loop`` in ``octfusion_tpu/diffusion/sampler.py``).
+"""Continuous-time ancestral sampler and denoising loss
+(port of ``sample_loop`` and ``diffusion_loss`` in
+``octfusion_tpu/diffusion/sampler.py``).
 
 The JAX ``lax.scan`` becomes a Python loop over one denoise callable; the
 per-step schedule scalars are computed in float32 on the host, as the
@@ -90,3 +91,49 @@ def sample_loop(
         else:
             raise ValueError(df_type)
     return x
+
+
+def diffusion_loss(
+    denoise_fn: Callable,   # (noised, log_snr[B]) -> output
+    x0: torch.Tensor,
+    batch_id: Optional[torch.Tensor],  # per-element sample index, or None
+    batch_size: int,
+    log_snr_fn,
+    df_type: str = "x0",
+    mask: Optional[torch.Tensor] = None,
+    times: Optional[torch.Tensor] = None,
+    noise: Optional[torch.Tensor] = None,
+    generator: Optional[torch.Generator] = None,
+) -> torch.Tensor:
+    """Continuous-time denoising MSE.
+
+    Dense states pass ``batch_id=None`` (the leading axis is the batch);
+    graph states pass per-vertex batch ids and a validity mask, and the
+    mean runs over the valid vertices.  ``times`` [B] and ``noise`` (x0's
+    shape) are drawn from ``generator``, in that order, unless given (a
+    test injects the JAX package's draws).  The lr stage's per-element
+    weights are not ported yet."""
+    f32 = dict(dtype=x0.dtype, device=x0.device)
+    if times is None:
+        times = torch.rand((batch_size,), generator=generator, **f32)
+    if noise is None:
+        noise = torch.randn(x0.shape, generator=generator, **f32)
+    snr = log_snr_fn(times.to(**f32))
+    alpha, sigma = log_snr_to_alpha_sigma(snr)
+    if batch_id is None:
+        bshape = (batch_size,) + (1,) * (x0.dim() - 1)
+        a, s = alpha.reshape(bshape), sigma.reshape(bshape)
+    else:
+        bid = batch_id.clamp(0, batch_size - 1)
+        a, s = alpha[bid][:, None], sigma[bid][:, None]
+    noised = a * x0 + s * noise.to(**f32)
+    if mask is not None:
+        noised = torch.where(mask[:, None], noised, torch.zeros_like(noised))
+    out = denoise_fn(noised, snr)
+    target = x0 if df_type == "x0" else noise.to(**f32)
+    err = (out - target) ** 2
+    norm = torch.ones_like(err)
+    if mask is not None:
+        err = torch.where(mask[:, None], err, torch.zeros_like(err))
+        norm = torch.where(mask[:, None], norm, torch.zeros_like(norm))
+    return err.sum() / norm.sum().clamp(min=1e-8)

@@ -1,34 +1,53 @@
-"""Two-stage ("union") diffusion cascade, sampling side
-(port of ``sample_lr`` / ``sample_hr`` / ``_grow_fn`` / ``sample`` in
-``octfusion_tpu/models/union_solver.py``).
+"""Two-stage ("union") diffusion solver
+(port of ``octfusion_tpu/models/union_solver.py``).
 
-The lr stage denoises the dense split grid, the grown octree's dual graph
-carries the hr stage, which denoises VAE latents with the frozen lr U-Net
-as its middle, and the growing VAE decode plus the dense MPU produce an
-SDF grid (and, on request, a mesh).  Modules own their parameters; the JAX
-package's jit caches and compile warm-up have no counterpart here.
+Sampling: the lr stage denoises the dense split grid, the grown octree's
+dual graph carries the hr stage, which denoises VAE latents with the frozen
+lr U-Net as its middle, and the growing VAE decode plus the dense MPU
+produce an SDF grid (and, on request, a mesh).
+
+Training (hr stage): a point-cloud batch becomes an octree and its dual
+graph on the device, the frozen VAE encoder gives the latent codes, and
+the hr U-Net learns to denoise them (``loss_fn``); ``make_train_step``
+adds the backward pass, AdamW with StepLR(1000, 0.9) over the hr U-Net
+(the lr U-Net is frozen) and the EMA.  Modules own their parameters; the
+JAX package's jit caches and compile warm-up have no counterpart here.
 """
 
 from __future__ import annotations
 
 import time
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 
 from ..config import Config
+from ..diffusion import ema as ema_lib
 from ..diffusion import sampler, schedule
 from ..nn.unet_union import UNetUnion, UnionConfig
 from ..nn.vae import GraphVAE
 from ..octree import split_codec
-from ..octree.dual_graph import build_dual_graph
+from ..octree.dual_graph import GraphSpec, build_dual_graph
 from ..utils import mesh as mesh_utils
 from ..utils import sdf as sdf_utils
+from .common import batch_to_graph
 
 
-def _sync(device) -> None:
-    if torch.device(device).type == "cuda":
-        torch.cuda.synchronize(device)
+class _Laps:
+    """Wall seconds of named stages; the device is synchronised at each
+    stage end, so a stage's seconds include its device work."""
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self.seconds: Dict[str, float] = {}
+        self._t0 = time.perf_counter()
+
+    def __call__(self, name: str) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        now = time.perf_counter()
+        self.seconds[name] = now - self._t0
+        self._t0 = now
 
 
 class UnionSolver:
@@ -55,7 +74,7 @@ class UnionSolver:
             depth=m.depth, channel_in=m.channel_in, full_depth=m.full_depth,
             depth_stop=m.depth_stop, depth_out=m.depth_out,
             embed_dim=m.embed_dim, resblk_num=m.resblk_num,
-            channels=tuple(m.channels),
+            channels=tuple(m.channels), use_checkpoint=m.use_checkpoint,
         ).to(self.device).eval()
         if "hr" in d.unet_type:
             i = d.unet_type.index("hr")
@@ -71,6 +90,68 @@ class UnionSolver:
         self.df_type = dict(zip(d.unet_type, d.df_type))
 
     # ------------------------------------------------------------------
+    # training (hr stage)
+    # ------------------------------------------------------------------
+    def code_shape(self, batch_size: int):
+        """Shape of the level-``depth_stop`` latent codes of a training
+        batch (the shape of the VAE's ``eps`` and of the loss's noise)."""
+        spec = GraphSpec(self.spec1.with_batch_size(batch_size),
+                         self.edge_factor)
+        return (spec.g_cap(self.small_depth), self.cfg.model.embed_dim)
+
+    def batch_graph(self, batch):
+        """points / normals [B, N, 3] -> the batch's dual graph of every
+        level (full_depth..depth), built on the device."""
+        return batch_to_graph(batch["points"], batch["normals"], self.spec1,
+                              self.edge_factor)[1]
+
+    def hr_loss(self, g, code, label=None, times=None, noise=None,
+                generator=None) -> torch.Tensor:
+        """Denoising MSE of the hr U-Net over the valid level-``depth_stop``
+        vertices; ``times`` / ``noise`` as in ``sampler.diffusion_loss``."""
+        lvl = g.level(self.small_depth)
+        return sampler.diffusion_loss(
+            lambda noised, snr: self.df("hr", noised, snr, g=g, label=label),
+            code, lvl.node_batch, g.spec.ospec.batch_size, self.log_snr,
+            self.df_type["hr"], mask=lvl.node_mask, times=times, noise=noise,
+            generator=generator)
+
+    def loss_fn(self, batch, times=None, noise=None, eps=None,
+                generator=None, lap=None):
+        """-> (loss, {"loss", "overflow"}) of one hr-stage batch.  The
+        random draws (the encoder's ``eps``, then the loss's ``times`` and
+        ``noise``) come from ``generator`` unless given; ``lap(name)``, if
+        given, is called after the graph build and after the encode."""
+        if self.stage_flag != "hr":
+            raise NotImplementedError("only the hr stage trains in the port")
+        lap = lap or (lambda name: None)
+        label = (batch.get("label")
+                 if self.union_cfg.num_classes is not None else None)
+        g = self.batch_graph(batch)
+        lap("graph")
+        with torch.no_grad():   # the frozen VAE's codes are the target
+            code = self.vae.extract_code(g, eps=eps, generator=generator)
+        lap("encode")
+        loss = self.hr_loss(g, code, label, times, noise, generator)
+        return loss, {"loss": loss.detach(),
+                      "overflow": g.any_overflow().to(torch.float32)}
+
+    def make_optimizer(self):
+        """AdamW + StepLR(1000, 0.9) over the trainable parameters.  The hr
+        stage freezes the lr U-Net: it is left out of the optimizer (no
+        update, no weight decay) and gets no gradient, while gradients
+        still flow through its activations."""
+        if self.stage_flag == "hr" and self.df.unet_lr is not None:
+            self.df.unet_lr.requires_grad_(False)
+        t = self.cfg.train
+        opt = torch.optim.AdamW(
+            [p for p in self.df.parameters() if p.requires_grad], lr=t.lr,
+            betas=(0.9, 0.999), eps=1e-8, weight_decay=t.weight_decay)
+        return opt, torch.optim.lr_scheduler.StepLR(opt, 1000, 0.9)
+
+    def make_train_step(self) -> "TrainStep":
+        return TrainStep(self)
+
     @torch.no_grad()
     def sample_lr(self, batch_size: int, label=None,
                   steps: Optional[int] = None, noise_stream=None,
@@ -144,17 +225,8 @@ class UnionSolver:
         wall time of each stage (the device is synchronised at stage
         ends)."""
         m = self.cfg.model
-        dev = self.device
-        secs = {}
-        t0 = time.perf_counter()
-
-        def lap(name):
-            nonlocal t0
-            _sync(dev)
-            now = time.perf_counter()
-            secs[name] = now - t0
-            t0 = now
-
+        self.df.eval()
+        lap = _Laps(self.device)
         split_small = self.sample_lr(
             batch_size, label=label, steps=steps, noise_stream=lr_noise,
             generator=generator)
@@ -162,7 +234,7 @@ class UnionSolver:
         octree_small, g_small = self._grow_fn(batch_size)(split_small)
         lap("grow")
         out = {"split_small": split_small, "octree_small": octree_small,
-               "seconds": secs}
+               "seconds": lap.seconds}
         if self.stage_flag == "lr":
             return out
         code = self.sample_hr(g_small, batch_size, label=label, steps=steps,
@@ -184,4 +256,46 @@ class UnionSolver:
             out["meshes"] = [mesh_utils.marching_tetrahedra(s)
                              for s in out["sdfs"]]
             lap("marching")
+        return out
+
+
+class TrainStep:
+    """One optimisation step of the hr stage: batch -> graph, the frozen
+    encoder under ``torch.no_grad``, the hr loss and its backward, an AdamW
+    step, StepLR and an EMA update of the U-Net's parameters with
+    ``diffusion.ema_rate``.  Holds the optimizer state and the EMA
+    (``ema``: name -> tensor over every parameter of ``solver.df``)."""
+
+    def __init__(self, solver: UnionSolver):
+        self.solver = solver
+        self.optimizer, self.scheduler = solver.make_optimizer()
+        self.ema_rate = solver.cfg.diffusion.ema_rate
+        self.ema = {n: p.detach().clone()
+                    for n, p in solver.df.named_parameters()}
+
+    def apply_gradients(self) -> None:
+        """The optimizer, schedule and EMA updates from the ``.grad`` of
+        the trainable parameters."""
+        self.optimizer.step()
+        self.scheduler.step()
+        ema_lib.ema_update(self.ema, dict(self.solver.df.named_parameters()),
+                           self.ema_rate)
+
+    def __call__(self, batch, times=None, noise=None, eps=None,
+                 generator=None, timed: bool = False) -> Dict:
+        """-> {"loss", "overflow"} (device scalars, as the JAX step's); with
+        ``timed`` also "seconds" of the stages graph / encode /
+        forward_backward / optimizer_ema (the device is synchronised at
+        each stage end)."""
+        s = self.solver
+        s.df.train()
+        lap = _Laps(s.device) if timed else (lambda name: None)
+        self.optimizer.zero_grad(set_to_none=True)
+        loss, out = s.loss_fn(batch, times, noise, eps, generator, lap)
+        loss.backward()
+        lap("forward_backward")
+        self.apply_gradients()
+        lap("optimizer_ema")
+        if timed:
+            out["seconds"] = lap.seconds
         return out

@@ -7,6 +7,9 @@ dict loads with ``strict=True``: graph-norm ``weights``/``bias`` are
 ``flatten(1)`` order, attention projections are ``Conv1d``.  Dense 3D
 modules run NCDHW.  Initialisers follow the JAX package (LeCun-normal
 dense and conv kernels, zero biases, zero-init where it zero-inits).
+Graph residual blocks with ``use_checkpoint`` recompute their body in the
+backward (``torch.utils.checkpoint``, the reference's ckpt_conv_wrapper
+and the JAX package's ``remat``) whenever autograd records.
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..octree.dual_graph import N_EDGE_TYPE, DualGraph, GraphLevel
 from ..ops import graph_ops
@@ -51,6 +55,14 @@ def _conv3d(cin: int, cout: int, kernel: int = 3, stride: int = 1,
         lecun_normal_(conv.weight, cin * kernel**3)
     nn.init.zeros_(conv.bias)
     return conv
+
+
+def _maybe_checkpoint(use: bool, fn, *args):
+    """``fn(*args)``, rematerialised in the backward when ``use`` and
+    autograd is recording."""
+    if use and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
 
 
 def group_count(channels: int, group: int = 32) -> int:
@@ -157,6 +169,23 @@ class ChildUpsample(_ChildMix):
         return (x @ self.weights.flatten(1)).reshape(-1, self.channels)
 
 
+class GraphDownsampleVAE(nn.Module):
+    """Level d -> d-1 (VAE flavour): mix + optional Conv1x1GnGelu."""
+
+    def __init__(self, channels_in: int, channels_out: int):
+        super().__init__()
+        self.downsample = ChildDownsample(channels_in)
+        self.conv1x1 = (Conv1x1GnGelu(channels_in, channels_out)
+                        if channels_in != channels_out else None)
+
+    def forward(self, x, g: DualGraph, d: int):
+        parents = self.downsample(graph_ops._cur_segment(x, g, d))
+        out = graph_ops.downsample_splice(x, parents, g, d)
+        if self.conv1x1 is not None:
+            out = self.conv1x1(out, g.level(d - 1))
+        return out
+
+
 class GraphUpsampleVAE(nn.Module):
     """Level d-1 -> d (VAE flavour): mix + optional Conv1x1GnGelu."""
 
@@ -208,9 +237,11 @@ class GraphResBlock(nn.Module):
     """GN -> swish -> conv -> GN -> swish -> dropout -> conv (+1x1Gn skip)."""
 
     def __init__(self, channel_in: int, channel_out: int,
-                 dropout: float = 0.0, n_node_type: int = 0):
+                 dropout: float = 0.0, n_node_type: int = 0,
+                 use_checkpoint: bool = True):
         super().__init__()
         self.dropout = dropout
+        self.use_checkpoint = use_checkpoint
         self.norm1 = DualOctreeGroupNorm(channel_in)
         self.conv1 = GraphConv(channel_in, channel_out, n_node_type=n_node_type)
         self.norm2 = DualOctreeGroupNorm(channel_out)
@@ -220,6 +251,9 @@ class GraphResBlock(nn.Module):
                          if channel_in != channel_out else None)
 
     def forward(self, x, lvl: GraphLevel):
+        return _maybe_checkpoint(self.use_checkpoint, self._body, x, lvl)
+
+    def _body(self, x, lvl: GraphLevel):
         h = self.conv1(swish(self.norm1(x, lvl)), lvl)
         h = swish(self.norm2(h, lvl))
         h = F.dropout(h, self.dropout, self.training)
@@ -231,11 +265,13 @@ class GraphResBlock(nn.Module):
 
 class GraphResBlocks(nn.Module):
     def __init__(self, channel_in: int, channel_out: int, resblk_num: int,
-                 dropout: float = 0.0, n_node_type: int = 0):
+                 dropout: float = 0.0, n_node_type: int = 0,
+                 use_checkpoint: bool = True):
         super().__init__()
         channels = [channel_in] + [channel_out] * resblk_num
         self.resblks = nn.ModuleList(
-            GraphResBlock(channels[i], channels[i + 1], dropout, n_node_type)
+            GraphResBlock(channels[i], channels[i + 1], dropout, n_node_type,
+                          use_checkpoint)
             for i in range(resblk_num)
         )
 
@@ -250,9 +286,11 @@ class GraphResBlockEmbed(nn.Module):
     is a batched gather-add."""
 
     def __init__(self, channels: int, emb_channels: int, out_channels: int,
-                 dropout: float = 0.0, n_node_type: int = 0):
+                 dropout: float = 0.0, n_node_type: int = 0,
+                 use_checkpoint: bool = True):
         super().__init__()
         self.dropout = dropout
+        self.use_checkpoint = use_checkpoint
         self.block1_norm = DualOctreeGroupNorm(channels)
         self.conv1 = GraphConv(channels, out_channels, n_node_type=n_node_type)
         self.emb_layers = nn.Sequential(
@@ -264,6 +302,9 @@ class GraphResBlockEmbed(nn.Module):
                                 if channels != out_channels else None)
 
     def forward(self, x, emb, lvl: GraphLevel):
+        return _maybe_checkpoint(self.use_checkpoint, self._body, x, emb, lvl)
+
+    def _body(self, x, emb, lvl: GraphLevel):
         h = self.conv1(swish(self.block1_norm(x, lvl)), lvl)
         h = graph_ops.add_batch_embedding(h, self.emb_layers(emb), lvl)
         h = swish(self.block2_norm(h, lvl))

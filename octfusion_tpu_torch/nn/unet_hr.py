@@ -5,6 +5,8 @@ The encoder descends graph levels ``input_depth ..`` with timestep-
 conditioned graph residual blocks; the middle block is the (frozen) lr
 voxel U-Net run body-only on the voxelised bottom level; the decoder
 mirrors upward with skip concats; the output conv is zero-initialised.
+With ``use_checkpoint`` the residual blocks recompute their bodies in the
+backward.
 ``input_blocks[0]`` is the input conv, as in the reference's key layout.
 """
 
@@ -33,6 +35,7 @@ class UNetHR(nn.Module):
         channel_mult: Tuple[int, ...] = (1, 2, 4),
         dropout: float = 0.0,
         num_classes: Optional[int] = None,
+        use_checkpoint: bool = True,
     ):
         super().__init__()
         self.input_depth = input_depth
@@ -52,7 +55,7 @@ class UNetHR(nn.Module):
         for level, mult in enumerate(channel_mult):
             for _ in range(num_res_blocks[level]):
                 blocks.append(modules.GraphResBlockEmbed(
-                    ch, ted, mult * mc, dropout, d - 1))
+                    ch, ted, mult * mc, dropout, d - 1, use_checkpoint))
                 kinds.append(("res", d))
                 ch = mult * mc
                 chans.append(ch)
@@ -68,16 +71,16 @@ class UNetHR(nn.Module):
         self._bottom_depth = d
 
         self.middle_block1 = modules.GraphResBlockEmbed(
-            ch, ted, lr_model_channels, dropout, d - 1)
+            ch, ted, lr_model_channels, dropout, d - 1, use_checkpoint)
         self.middle_block2 = modules.GraphResBlockEmbed(
-            lr_model_channels * 2, ted, ch, dropout, d - 1)
+            lr_model_channels * 2, ted, ch, dropout, d - 1, use_checkpoint)
 
         out_blocks, out_kinds = [], []
         for level, mult in list(enumerate(channel_mult))[::-1]:
             for i in range(num_res_blocks[level] + 1):
                 ich = chans.pop()
                 out_blocks.append(modules.GraphResBlockEmbed(
-                    ch + ich, ted, mc * mult, dropout, d - 1))
+                    ch + ich, ted, mc * mult, dropout, d - 1, use_checkpoint))
                 out_kinds.append(("res", d))
                 ch = mc * mult
                 if level and i == num_res_blocks[level]:

@@ -32,6 +32,7 @@ class UnionConfig:
     num_heads: int = 4
     num_classes: Optional[int] = None
     compute_dtype: str = "float32"
+    use_checkpoint: bool = True
 
 
 class UNetUnion(nn.Module):
@@ -68,6 +69,7 @@ class UNetUnion(nn.Module):
                     num_res_blocks=tuple(cfg.num_res_blocks[i]),
                     channel_mult=tuple(cfg.channel_mult[i]),
                     num_classes=cfg.num_classes,
+                    use_checkpoint=cfg.use_checkpoint,
                 )
             else:
                 raise NotImplementedError(f"stage {kind!r} is not ported yet")

@@ -1,24 +1,28 @@
-"""Graph VAE decoder on the dual octree
-(port of the decoder half of ``octfusion_tpu/nn/vae.py``).
+"""Graph VAE on the dual octree (port of ``octfusion_tpu/nn/vae.py``).
 
-``decode_grow`` is the inference decoder: it predicts per-level split
-logits and MPU plane parameters, splitting and growing the octree level by
-level and extending the dual graph as it goes.  The encoder, the
-fixed-topology ``decode`` and the colour heads are not ported yet; module
-names follow the reference's decoder keys, so the decoder part of a
-reference state dict loads with ``strict=True``.
+``encode`` / ``extract_code`` are the encoder: the ND input feature on
+the level-``depth`` graph, a GraphConv stem, residual blocks and
+leaf-preserving downsamples to ``depth_stop``, and a 1x1 head giving a
+diagonal Gaussian over ``embed_dim`` channels per level-``depth_stop``
+vertex.  ``decode_grow`` is the inference decoder: it predicts per-level
+split logits and MPU plane parameters, splitting and growing the octree
+level by level and extending the dual graph as it goes.  The
+fixed-topology ``decode`` and the colour heads are not ported yet.  Module
+names follow the reference's keys, so a whole reference state dict loads
+with ``strict=True``.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..octree.dual_graph import DualGraph, extend_dual_graph
 from ..ops import graph_ops
-from . import modules
+from . import distributions, modules
 
 DEFAULT_CHANNELS = (4, 512, 512, 256, 128, 64, 32, 32, 24, 8)
 
@@ -38,12 +42,15 @@ class PredictHead(nn.ModuleList):
 
 
 class _DecoderMid(nn.Module):
-    def __init__(self, channels: int, resblk_num: int, n_node_type: int):
+    def __init__(self, channels: int, resblk_num: int, n_node_type: int,
+                 use_checkpoint: bool):
         super().__init__()
         self.block_1 = modules.GraphResBlocks(
-            channels, channels, resblk_num, n_node_type=n_node_type)
+            channels, channels, resblk_num, n_node_type=n_node_type,
+            use_checkpoint=use_checkpoint)
         self.block_2 = modules.GraphResBlocks(
-            channels, channels, resblk_num, n_node_type=n_node_type)
+            channels, channels, resblk_num, n_node_type=n_node_type,
+            use_checkpoint=use_checkpoint)
 
 
 class GraphVAE(nn.Module):
@@ -57,23 +64,67 @@ class GraphVAE(nn.Module):
         embed_dim: int = 3,
         resblk_num: int = 2,
         channels: Tuple[int, ...] = DEFAULT_CHANNELS,
+        use_checkpoint: bool = True,
     ):
         super().__init__()
-        del depth, channel_in, full_depth  # encoder side, not ported yet
+        del full_depth  # the dual graph carries it
+        self.depth = depth
         ds = self.depth_stop = depth_stop
         self.depth_out = depth_out
         ch = channels
+        ckpt = dict(use_checkpoint=use_checkpoint)
+        # encoder
+        self.conv1 = modules.GraphConv(channel_in, ch[depth],
+                                       n_node_type=depth - 1)
+        self.encoder = nn.ModuleList(
+            modules.GraphResBlocks(ch[d], ch[d], resblk_num - 1,
+                                   n_node_type=d - 1, **ckpt)
+            for d in range(depth, ds - 1, -1))
+        self.downsample = nn.ModuleList(
+            modules.GraphDownsampleVAE(ch[d], ch[d - 1])
+            for d in range(depth, ds, -1))
+        self.encoder_norm_out = modules.DualOctreeGroupNorm(ch[ds])
+        self.KL_conv = modules.Conv1x1(ch[ds], 2 * embed_dim, use_bias=True)
+        # decoder
         self.post_KL_conv = modules.Conv1x1(embed_dim, ch[ds], use_bias=True)
-        self.decoder_mid = _DecoderMid(ch[ds], resblk_num, ds - 1)
+        self.decoder_mid = _DecoderMid(ch[ds], resblk_num, ds - 1,
+                                       use_checkpoint)
         levels = range(ds, depth_out + 1)
         self.decoder = nn.ModuleList(
-            modules.GraphResBlocks(ch[d], ch[d], resblk_num, n_node_type=d - 1)
+            modules.GraphResBlocks(ch[d], ch[d], resblk_num, n_node_type=d - 1,
+                                   **ckpt)
             for d in levels)
         self.upsample = nn.ModuleList(
             modules.GraphUpsampleVAE(ch[d - 1], ch[d])
             for d in range(ds + 1, depth_out + 1))
         self.predict = nn.ModuleList(PredictHead(ch[d], 2) for d in levels)
         self.regress = nn.ModuleList(PredictHead(ch[d], 4) for d in levels)
+
+    def encode(self, g: DualGraph):
+        """-> (mean, logvar) [G_cap(depth_stop), embed_dim] on the
+        level-``depth_stop`` vertex layout, zero on padding.  ``g`` must
+        hold every level up to ``depth``."""
+        ds = self.depth_stop
+        x = graph_ops.level_input_feature(g)
+        for i, d in enumerate(range(self.depth, ds - 1, -1)):
+            if d == self.depth:
+                x = self.conv1(x, g.level(d))
+            x = self.encoder[i](x, g.level(d))
+            if d > ds:
+                x = self.downsample[i](x, g, d)
+        x = F.gelu(self.encoder_norm_out(x, g.level(ds)))
+        code = self.KL_conv(x)
+        mask = g.level(ds).node_mask[:, None]
+        code = torch.where(mask, code, torch.zeros_like(code))
+        return distributions.split_params(code)
+
+    def extract_code(self, g: DualGraph, eps: Optional[torch.Tensor] = None,
+                     generator: Optional[torch.Generator] = None):
+        """Sampled latent codes on the level-``depth_stop`` layout, the hr
+        stage's diffusion target; ``eps`` or ``generator`` as in
+        :func:`distributions.sample`."""
+        mean, logvar = self.encode(g)
+        return distributions.sample(mean, logvar, eps, generator)
 
     def decode_grow(self, code: torch.Tensor, g: DualGraph) -> Dict:
         """Growing decode (inference): split each level from its predicted

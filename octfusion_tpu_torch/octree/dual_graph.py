@@ -10,7 +10,9 @@ hold ``row = col = g_cap``.  Every array, padding included, equals the
 reference's; the sorts are stable and use the reference's int32 sentinel.
 
 Beyond the reference, a :class:`GraphLevel` caches the CSR row pointer over
-its ``G * 7`` (row, dir) slots, which the CUDA graph convolution reads.
+its ``G * 7`` (row, dir) slots, which the CUDA graph convolution reads, and
+the transposed CSR over its (col, dir) slots, which the convolution's
+input-gradient kernel reads.
 """
 
 from __future__ import annotations
@@ -120,6 +122,9 @@ class GraphLevel:
     # CSR of the sorted edges, built on first use (see :meth:`csr`)
     _csr: Optional[tuple] = dataclasses.field(
         default=None, init=False, repr=False, compare=False)
+    # transposed CSR, built on first use (see :meth:`csr_t`)
+    _csr_t: Optional[tuple] = dataclasses.field(
+        default=None, init=False, repr=False, compare=False)
 
     @property
     def g_cap(self) -> int:
@@ -142,6 +147,27 @@ class GraphLevel:
                    self.edge_scale.to(torch.float32).contiguous())
             object.__setattr__(self, "_csr", csr)
         return self._csr
+
+    def csr_t(self):
+        """``(trow_ptr, t_row, t_scale)``: the edges stably sorted by
+        ``col*7 + dir``, built once per level on the device.
+        ``trow_ptr[s]..trow_ptr[s+1]`` are the edges of slot
+        ``s = col*7 + dir`` (int32, ``G*7 + 1`` entries), ``t_row`` their
+        rows (int32) and ``t_scale`` their scales.  Invalid edges
+        (``row = g_cap``) are keyed past the last slot, so no kernel reads
+        them."""
+        if self._csr_t is None:
+            g = self.g_cap
+            key = torch.where(self.edge_row < g,
+                              self.edge_col * N_EDGE_TYPE + self.edge_dir,
+                              g * N_EDGE_TYPE)
+            key, order = torch.sort(key, stable=True)
+            bounds = torch.arange(g * N_EDGE_TYPE + 1, device=key.device)
+            csr_t = (torch.searchsorted(key, bounds).to(torch.int32),
+                     self.edge_row[order].to(torch.int32),
+                     self.edge_scale[order].to(torch.float32))
+            object.__setattr__(self, "_csr_t", csr_t)
+        return self._csr_t
 
 
 @dataclasses.dataclass(frozen=True)

@@ -274,3 +274,164 @@ def create_full_octree(spec: OctreeSpec, device="cpu") -> Octree:
                            dtype=torch.float32, device=device),
         overflow=torch.zeros(spec.depth + 1, dtype=torch.bool, device=device),
     )
+
+
+def _unique_sorted(codes: torch.Tensor, valid: torch.Tensor, cap: int):
+    """Compact the unique values of an ascending (masked) int tensor into
+    ``cap`` slots padded with INVALID_KEY.  Returns
+    ``(unique[cap], rank_per_input, n_unique)``; ``n_unique`` may exceed
+    ``cap`` (the caller flags the overflow)."""
+    first = torch.cat([valid[:1], (codes[1:] != codes[:-1]) & valid[1:]])
+    first = first & valid
+    rank = torch.cumsum(first.to(torch.int64), 0) - 1
+    uniq = set_where(
+        torch.full((cap,), INVALID_KEY, dtype=torch.int64, device=codes.device),
+        rank, codes, first & (rank < cap))
+    return uniq, rank, first.sum()
+
+
+def _scatter_add(cap: int, idx: torch.Tensor, val: torch.Tensor):
+    """[cap, C] sums of ``val`` rows by ``idx``; indices past ``cap`` are
+    dropped (the reference's ``.at[idx].add`` on a [cap, C] buffer)."""
+    buf = val.new_zeros((cap + 1, val.shape[1]))
+    buf.index_add_(0, torch.where(idx < cap, idx, cap), val)
+    return buf[:cap]
+
+
+def build_octree(points: torch.Tensor, normals: torch.Tensor,
+                 spec: OctreeSpec) -> Octree:
+    """A single-sample octree from points in [-1, 1]^3 with unit normals.
+
+    The finest-level signal is the ND input feature: the per-node averaged
+    unit normal (3 channels) plus the mean displacement of the node's
+    points along it, from the node centre in node units (1 channel).  Runs
+    on the points' device without waiting for the host; a level that needs
+    more than its cap keeps the first ``cap`` nodes and flags
+    ``overflow``."""
+    assert spec.batch_size == 1
+    depth, full_depth = spec.depth, spec.full_depth
+    size = 2**depth
+    dev = points.device
+    i64 = dict(dtype=torch.int64, device=dev)
+
+    scaled = (points.to(torch.float32) + 1.0) * (size / 2.0)
+    xyz = torch.floor(scaled).to(torch.int64).clamp(0, size - 1)
+    code = morton.xyz2key(xyz[:, 0], xyz[:, 1], xyz[:, 2], depth)
+    scode, order = torch.sort(code, stable=True)
+    snormals = normals.to(torch.float32)[order]
+    # fractional position inside the node, in [0,1)^3
+    sfrac = (scaled - xyz.to(torch.float32))[order]
+    valid = torch.ones(points.shape[0], dtype=torch.bool, device=dev)
+
+    # occupied (distinct) codes per depth, finest -> full_depth
+    occ_keys, occ_n = {}, {}
+    occ_keys[depth], rank, occ_n[depth] = _unique_sorted(
+        scode, valid, spec.node_caps[depth])
+    for d in range(depth - 1, full_depth - 1, -1):
+        child_keys = occ_keys[d + 1]
+        pvalid = child_keys != INVALID_KEY
+        pcodes = torch.where(pvalid, child_keys >> 3, INVALID_KEY)
+        occ_keys[d], _, occ_n[d] = _unique_sorted(
+            pcodes, pvalid, spec.node_caps[d])
+
+    # per-occupied-node averaged signal at the finest depth
+    cap_f = spec.node_caps[depth]
+    cnt = _scatter_add(cap_f, rank, torch.ones_like(snormals[:, :1]))
+    cnt = cnt.clamp(min=1.0)
+    navg = _scatter_add(cap_f, rank, snormals) / cnt
+    navg = navg / navg.norm(dim=-1, keepdim=True).clamp(min=1e-12)
+    favg = _scatter_add(cap_f, rank, sfrac) / cnt
+    disp = (navg * (favg - 0.5)).sum(-1, keepdim=True)
+    occ_signal = torch.cat([navg, disp], -1)
+
+    keys, batch, child, nnum, nnum_nempty, overflow = [], [], [], [], [], []
+    signal = None
+    octant = torch.arange(8, **i64)
+    for d in range(depth + 1):
+        cap = spec.node_caps[d]
+        ar = torch.arange(cap, **i64)
+        if d <= full_depth:
+            k, b = ar % 8**d, ar // 8**d
+            nn = torch.tensor(cap, **i64)
+        else:
+            # children of occupied nodes at d-1
+            pk = occ_keys[d - 1]
+            k = torch.where((pk != INVALID_KEY)[:, None],
+                            pk[:, None] * 8 + octant[None, :],
+                            INVALID_KEY).reshape(-1)[:cap]
+            nn = occ_n[d - 1] * 8
+            b = torch.where(ar < nn, 0, spec.batch_size)
+        if d < full_depth:
+            c, ne = ar, nn
+        else:
+            # non-empty = member of the occupied set of depth d
+            idx = torch.searchsorted(occ_keys[d], k).clamp(0, cap - 1)
+            hit = (occ_keys[d][idx] == k) & (k != INVALID_KEY)
+            c = torch.where(hit, idx, -1)
+            ne = occ_n[d]
+            if d == depth:
+                signal = torch.where(hit[:, None], occ_signal[idx],
+                                     torch.zeros_like(occ_signal))
+        overflow.append(nn > cap)
+        nn = nn.clamp(max=cap)
+        vmask = ar < nn
+        keys.append(torch.where(vmask, k, INVALID_KEY))
+        batch.append(torch.where(vmask, b, spec.batch_size))
+        child.append(torch.where(vmask, c, -1))
+        nnum.append(nn)
+        nnum_nempty.append(ne.clamp(max=cap))
+
+    return Octree(
+        spec=spec, keys=keys, batch=batch, child=child,
+        nnum=torch.stack(nnum), nnum_nempty=torch.stack(nnum_nempty),
+        signal=signal, overflow=torch.stack(overflow),
+    )
+
+
+def merge_octrees(octrees: Sequence[Octree]) -> Octree:
+    """Concatenate single-sample octrees into one batch: per depth, the
+    samples' valid prefixes are packed batch-major and ``child`` ranks are
+    offset by the cumulative non-empty counts (``ocnn.merge_octrees``)."""
+    b = len(octrees)
+    spec0 = octrees[0].spec
+    for o in octrees:
+        assert o.spec == spec0 and o.spec.batch_size == 1
+    mspec = spec0.with_batch_size(b)
+    dev = octrees[0].device
+
+    nnum = torch.stack([o.nnum for o in octrees])            # [B, D+1]
+    nnum_ne = torch.stack([o.nnum_nempty for o in octrees])  # [B, D+1]
+    off = torch.cumsum(nnum, 0) - nnum
+    off_ne = torch.cumsum(nnum_ne, 0) - nnum_ne
+    sample = torch.arange(b, dtype=torch.int64, device=dev)[:, None]
+
+    keys, batch, child = [], [], []
+    signal = None
+    for d in range(spec0.depth + 1):
+        cap1, capm = spec0.node_caps[d], mspec.node_caps[d]
+        i = torch.arange(cap1, dtype=torch.int64, device=dev)[None, :]
+        tgt = off[:, d, None] + i
+        keep = ((i < nnum[:, d, None]) & (tgt < capm)).reshape(-1)
+        tgt = tgt.reshape(-1)
+
+        def pack(fill, vals):
+            buf = torch.full((capm,) + vals.shape[2:], fill, dtype=vals.dtype,
+                             device=dev)
+            return set_where(buf, tgt, vals.reshape((-1,) + vals.shape[2:]),
+                             keep)
+
+        keys.append(pack(INVALID_KEY, torch.stack([o.keys[d] for o in octrees])))
+        batch.append(pack(b, sample.expand(b, cap1)))
+        c = torch.stack([o.child[d] for o in octrees])
+        child.append(pack(-1, torch.where(c >= 0, c + off_ne[:, d, None], -1)))
+        if d == spec0.depth:
+            signal = pack(0.0, torch.stack([o.signal for o in octrees]))
+
+    caps = torch.tensor(mspec.node_caps, dtype=torch.int64, device=dev)
+    tot = nnum.sum(0)
+    overflow = torch.stack([o.overflow for o in octrees]).any(0) | (tot > caps)
+    return Octree(
+        spec=mspec, keys=keys, batch=batch, child=child,
+        nnum=torch.minimum(tot, caps), nnum_nempty=nnum_ne.sum(0),
+        signal=signal, overflow=overflow,
+    )

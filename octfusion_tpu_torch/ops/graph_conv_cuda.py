@@ -1,31 +1,48 @@
-"""Fused graph convolution on Hopper: ``out = col(x) @ W``.
+"""Fused graph convolution on Hopper, forward and backward.
 
-Replaces ``octfusion_tpu/ops/pallas/graph_conv_kernel.py::_fwd_kernel``
-(launched by ``_run_fwd``, API ``graph_conv_fused``).  Both compute
+The forward computes ``out = col(x) @ W`` with
 
     col[r, d*C:(d+1)*C] = sum over edges (r, c, d) of scale_e * x[c]
     out = col @ W            x [G, C], W [7C, C'], out [G, C']
 
-with ``scale_e = 1/|edges of (r, d)|``, i.e. a scatter-mean over
-neighbours followed by the trailing GEMM, without ever writing the
-[G, 7C] column buffer to device memory.
+and ``scale_e = 1/|edges of (r, d)|``, i.e. a scatter-mean over
+neighbours followed by the trailing GEMM.  Three hand-written CUDA kernels
+(``csrc/graph_conv.cu``) replace the three Pallas kernels of
+``octfusion_tpu/ops/pallas/graph_conv_kernel.py``:
 
-The TPU kernel turns the gather into one-hot matmuls over a descriptor
+* K1 ``graph_conv_fwd`` (replaces ``_fwd_kernel``): the forward, without
+  ever writing the [G, 7C] column buffer to device memory;
+* K2 ``graph_conv_col`` (replaces ``_col_kernel``): the column buffer
+  alone, recomputed in the backward for ``dW = col(x)^T dout``;
+* K3 ``graph_conv_bwd_dx`` (replaces ``_bwd_kernel``):
+  ``dx = sum_d A_d^T (dout W_d^T)``, which it evaluates as
+  ``sum_d (A_d^T dout) W_d^T`` over the transposed CSR
+  (``GraphLevel.csr_t``), forming the product with ``W_d^T`` in its own
+  body as the TPU kernel does.
+
+:class:`GraphConvFunction` ties them together as the JAX package's
+``custom_vjp`` does (``graph_conv_kernel.py:259-287``); ``dW``'s product
+itself is one ``torch.matmul``, as it is an XLA einsum outside Pallas
+there.
+
+The TPU kernels turn the gathers into one-hot matmuls over a descriptor
 plan because the TPU has no fast per-row gather.  Hopper has one, so the
-CUDA kernel (``csrc/graph_conv.cu``) reads the CSR the sorted edge list
-already implies (``GraphLevel.csr``).  What bounds it on an H100: at small
-C the gather, whose bytes are ~7 x E/G x C x 4 per output row and which
-each column tile of the output repeats; at large C the fp32 FMAs of the
-GEMM (7C x C' per row, 67 TFLOP/s peak outside the tensor cores).  The
-design answers the first by gathering a [64 x 32] tile of ``col`` straight
-into shared memory (a warp per row, lanes on consecutive channels, so each
-neighbour read is one coalesced 128-byte line) and using it for 64 output
-columns; and the second by a 4 x 4 register micro-tile per thread over
-K-chunks of 32.  Tensor cores (wgmma), TMA and bf16 are later work.
+CUDA kernels read the CSR the sorted edge list already implies
+(``GraphLevel.csr``) or its transpose.  What bounds K1 and K3 on an H100:
+at small C the gather, whose bytes are ~7 x E/G x C x 4 per output row and
+which each column tile of the output repeats; at large C the fp32 FMAs of
+the GEMM (7C x C' per row, 67 TFLOP/s peak outside the tensor cores).  The
+design answers the first by gathering a [64 x 32] tile of the column
+buffer straight into shared memory (a warp per row, lanes on consecutive
+channels, so each neighbour read is one coalesced 128-byte line) and using
+it for 64 output columns; and the second by a 4 x 4 register micro-tile
+per thread over K-chunks of 32.  K2 is bound by its bytes: it reads
+E x C and writes G x 7C floats, a warp per (row, dir) slot with lanes on
+channels.  Tensor cores (wgmma), TMA and bf16 are later work.
 
-Beside the kernel sits its plain PyTorch version (gather, scale,
-``index_add_`` into [G*7, C], GEMM).  ``graph_ops.graph_conv`` takes the
-plain version only for CPU tensors; a CUDA tensor launches the kernel or
+Beside each kernel sits its plain PyTorch version (gather, scale,
+``index_add_``; for K1 and K3 a GEMM).  The wrappers take the plain
+versions only for CPU tensors; a CUDA tensor launches the kernel or
 raises.  The library is compiled with ``nvcc`` into ``build/`` on first use
 and loaded with ``ctypes``.
 """
@@ -39,6 +56,7 @@ import shutil
 import subprocess
 
 import torch
+from torch.autograd.function import once_differentiable
 
 N_EDGE_TYPE = 7
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -47,22 +65,29 @@ BUILD_DIR = os.path.join(_PKG, "build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
-# kernel launches since the last reset_launches(); counted where the kernel
-# is launched and nowhere else
-launches = 0
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# C entry point -> argument types (pointers, ints, then the stream)
+_SIGNATURES = {
+    "graph_conv_fwd": [_P] * 6 + [_I] * 3 + [_P],
+    "graph_conv_col": [_P] * 5 + [_I] * 2 + [_P],
+    "graph_conv_bwd_dx": [_P] * 6 + [_I] * 3 + [_P],
+}
+# kernel launches since the last reset_launches(), per kernel; each is
+# counted where its kernel is launched and nowhere else
+launches = dict.fromkeys(_SIGNATURES, 0)
 _lib = None
 
 
 def reset_launches() -> None:
-    global launches
-    launches = 0
+    for name in launches:
+        launches[name] = 0
 
 
 def _nvcc() -> str:
     for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
         if cand and os.path.exists(cand):
             return cand
-    raise RuntimeError("nvcc not found: the graph-conv kernel is built with "
+    raise RuntimeError("nvcc not found: the graph-conv kernels are built with "
                        "the CUDA toolkit at first use on a GPU")
 
 
@@ -88,10 +113,10 @@ def _load():
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(build())
-        fn = lib.graph_conv_fwd
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [
-            ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
         _lib = lib
     return _lib
 
@@ -107,54 +132,163 @@ def _check(t: torch.Tensor, name: str, dtype, ndim: int, device):
         raise ValueError(f"{name} must be contiguous")
 
 
+def _check_inputs(name, feats, csr, g):
+    """Checks shared by the three wrappers: CUDA float32 ``feats``, and a
+    CSR over g*7 slots."""
+    if not feats[0][1].is_cuda:
+        raise ValueError(f"graph_conv_cuda.{name} needs CUDA tensors; use "
+                         f"{name}_plain on the CPU")
+    dev = feats[0][1].device
+    for fname, t in feats:
+        _check(t, fname, torch.float32, 2, dev)
+    ptr, idx, scale = csr
+    _check(ptr, "row_ptr", torch.int32, 1, dev)
+    _check(idx, "col", torch.int32, 1, dev)
+    _check(scale, "scale", torch.float32, 1, dev)
+    if ptr.shape[0] != g * N_EDGE_TYPE + 1:
+        raise ValueError(f"row_ptr has {ptr.shape[0]} entries, expected "
+                         f"G*7+1 = {g * N_EDGE_TYPE + 1}")
+    if idx.shape != scale.shape:
+        raise ValueError("col and scale differ in length")
+    return dev
+
+
+def _launch(name: str, dev, *args) -> None:
+    fn = getattr(_load(), name)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+    launches[name] += 1
+
+
 def graph_conv(x: torch.Tensor, w: torch.Tensor, row_ptr: torch.Tensor,
                col: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
-    """Launch the CUDA kernel: x [G, C] f32, w [7C, C'] f32, CSR
-    ``row_ptr`` [G*7+1] int32, ``col`` [E] int32, ``scale`` [E] f32, all
-    contiguous on one CUDA device.  Returns [G, C'] f32."""
-    global launches
-    if not x.is_cuda:
-        raise ValueError("graph_conv_cuda.graph_conv needs CUDA tensors; "
-                         "use graph_conv_plain on the CPU")
-    dev = x.device
-    _check(x, "x", torch.float32, 2, dev)
-    _check(w, "w", torch.float32, 2, dev)
-    _check(row_ptr, "row_ptr", torch.int32, 1, dev)
-    _check(col, "col", torch.int32, 1, dev)
-    _check(scale, "scale", torch.float32, 1, dev)
+    """K1: x [G, C] f32, w [7C, C'] f32, CSR ``row_ptr`` [G*7+1] int32,
+    ``col`` [E] int32, ``scale`` [E] f32, all contiguous on one CUDA
+    device.  Returns ``col(x) @ w``, [G, C'] f32."""
     g, c = x.shape
+    dev = _check_inputs("graph_conv", [("x", x), ("w", w)],
+                        (row_ptr, col, scale), g)
     cout = w.shape[1]
     if w.shape[0] != N_EDGE_TYPE * c:
         raise ValueError(f"w has {w.shape[0]} rows, expected 7*C = {7 * c}")
-    if row_ptr.shape[0] != g * N_EDGE_TYPE + 1:
-        raise ValueError(f"row_ptr has {row_ptr.shape[0]} entries, expected "
-                         f"G*7+1 = {g * N_EDGE_TYPE + 1}")
-    if col.shape != scale.shape:
-        raise ValueError("col and scale differ in length")
     out = torch.empty((g, cout), dtype=torch.float32, device=dev)
-    if g == 0 or cout == 0:
-        return out
-    fn = _load().graph_conv_fwd
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(x.data_ptr(), w.data_ptr(), row_ptr.data_ptr(),
-                 col.data_ptr(), scale.data_ptr(), out.data_ptr(),
-                 g, c, cout, stream)
-    if err != 0:
-        raise RuntimeError(f"graph_conv_fwd launch failed: CUDA error {err}")
-    launches += 1
+    if g and cout:
+        _launch("graph_conv_fwd", dev, x.data_ptr(), w.data_ptr(),
+                row_ptr.data_ptr(), col.data_ptr(), scale.data_ptr(),
+                out.data_ptr(), g, c, cout)
     return out
 
 
-def graph_conv_plain(x: torch.Tensor, w: torch.Tensor, edge_row, edge_col,
-                     edge_dir, edge_scale) -> torch.Tensor:
-    """The kernel's plain PyTorch version: gather, scale, ``index_add_``
-    into the [G*7, C] column buffer (invalid edges, ``row >= G``, land in a
-    dropped slot), then one GEMM."""
+def graph_conv_col(x: torch.Tensor, row_ptr: torch.Tensor, col: torch.Tensor,
+                   scale: torch.Tensor) -> torch.Tensor:
+    """K2: the column buffer ``col(x)``, [G, 7C] f32 (arguments as for
+    :func:`graph_conv`)."""
+    g, c = x.shape
+    dev = _check_inputs("graph_conv_col", [("x", x)], (row_ptr, col, scale), g)
+    out = torch.empty((g, N_EDGE_TYPE * c), dtype=torch.float32, device=dev)
+    if g and c:
+        _launch("graph_conv_col", dev, x.data_ptr(), row_ptr.data_ptr(),
+                col.data_ptr(), scale.data_ptr(), out.data_ptr(), g, c)
+    return out
+
+
+def graph_conv_bwd_dx(dout: torch.Tensor, w: torch.Tensor,
+                      trow_ptr: torch.Tensor, t_row: torch.Tensor,
+                      t_scale: torch.Tensor) -> torch.Tensor:
+    """K3: dout [G, C'] f32, w [7C, C'] f32 and the transposed CSR
+    (``GraphLevel.csr_t``: ``trow_ptr`` [G*7+1] int32 over the (col, dir)
+    slots, ``t_row`` [E] int32, ``t_scale`` [E] f32).  Returns the input
+    gradient ``dx`` [G, C] f32."""
+    g, cout = dout.shape
+    dev = _check_inputs("graph_conv_bwd_dx", [("dout", dout), ("w", w)],
+                        (trow_ptr, t_row, t_scale), g)
+    if w.shape[1] != cout or w.shape[0] % N_EDGE_TYPE:
+        raise ValueError(f"w has shape {tuple(w.shape)}, expected "
+                         f"[7*C, {cout}]")
+    c = w.shape[0] // N_EDGE_TYPE
+    out = torch.empty((g, c), dtype=torch.float32, device=dev)
+    if g and c:
+        _launch("graph_conv_bwd_dx", dev, dout.data_ptr(), w.data_ptr(),
+                trow_ptr.data_ptr(), t_row.data_ptr(), t_scale.data_ptr(),
+                out.data_ptr(), g, c, cout)
+    return out
+
+
+# ----------------------------------------------------------------------
+# plain PyTorch versions (CPU tensors; the kernels' oracles on the card)
+# ----------------------------------------------------------------------
+def graph_conv_col_plain(x: torch.Tensor, edge_row, edge_col, edge_dir,
+                         edge_scale) -> torch.Tensor:
+    """K2's plain version: gather, scale, ``index_add_`` into the [G*7, C]
+    column buffer (invalid edges, ``row >= G``, land in a dropped slot)."""
     g, c = x.shape
     gathered = x[edge_col.clamp(0, g - 1)] * edge_scale[:, None].to(x.dtype)
     slots = torch.where(edge_row < g, edge_row * N_EDGE_TYPE + edge_dir,
                         g * N_EDGE_TYPE)
     col = torch.zeros((g * N_EDGE_TYPE + 1, c), dtype=x.dtype, device=x.device)
     col.index_add_(0, slots, gathered)
-    return col[:-1].reshape(g, N_EDGE_TYPE * c) @ w
+    return col[:-1].reshape(g, N_EDGE_TYPE * c)
+
+
+def graph_conv_plain(x: torch.Tensor, w: torch.Tensor, edge_row, edge_col,
+                     edge_dir, edge_scale) -> torch.Tensor:
+    """K1's plain version: the column buffer, then one GEMM."""
+    return graph_conv_col_plain(x, edge_row, edge_col, edge_dir,
+                                edge_scale) @ w
+
+
+def graph_conv_bwd_dx_plain(dout: torch.Tensor, w: torch.Tensor, edge_row,
+                            edge_col, edge_dir, edge_scale) -> torch.Tensor:
+    """K3's plain version: ``dcol = dout @ W^T`` as [G, 7, C], gathered by
+    each edge's (row, dir), scaled, and ``index_add_``-ed into dx by its
+    col (invalid edges land in a dropped row)."""
+    g = dout.shape[0]
+    c = w.shape[0] // N_EDGE_TYPE
+    dcol = (dout @ w.t()).reshape(g * N_EDGE_TYPE, c)
+    ok = edge_row < g
+    src = torch.where(ok, edge_row * N_EDGE_TYPE + edge_dir, 0)
+    dst = torch.where(ok, edge_col, g)
+    dx = torch.zeros((g + 1, c), dtype=dout.dtype, device=dout.device)
+    dx.index_add_(0, dst, dcol[src] * edge_scale[:, None].to(dout.dtype))
+    return dx[:-1]
+
+
+class GraphConvFunction(torch.autograd.Function):
+    """``col(x) @ w`` on a :class:`GraphLevel` ``lvl``, differentiable in
+    ``x`` and ``w``: K1 forward; K3 for ``dx`` and K2's column buffer for
+    ``dW = col^T dout`` backward.  A CPU tensor takes the plain versions.
+    Only ``x`` and ``w`` are saved; the level's edges, CSRs and scales are
+    graph constants.  Like the JAX ``custom_vjp`` rule, every backward
+    forms both gradients."""
+
+    # backward calls since the last reset (cf. ``launches``)
+    backward_calls = 0
+
+    @staticmethod
+    def forward(ctx, x, w, lvl):
+        ctx.save_for_backward(x, w)
+        ctx.lvl = lvl
+        if x.is_cuda:
+            return graph_conv(x.contiguous(), w.contiguous(), *lvl.csr())
+        return graph_conv_plain(x, w, lvl.edge_row, lvl.edge_col,
+                                lvl.edge_dir, lvl.edge_scale)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dout):
+        x, w = ctx.saved_tensors
+        lvl = ctx.lvl
+        GraphConvFunction.backward_calls += 1
+        dout = dout.contiguous()
+        if dout.is_cuda:
+            dx = graph_conv_bwd_dx(dout, w.contiguous(), *lvl.csr_t())
+            col = graph_conv_col(x.contiguous(), *lvl.csr())
+        else:
+            edges = (lvl.edge_row, lvl.edge_col, lvl.edge_dir, lvl.edge_scale)
+            dx = graph_conv_bwd_dx_plain(dout, w, *edges)
+            col = graph_conv_col_plain(x, *edges)
+        dw = col.t() @ dout
+        return dx, dw, None

@@ -1,9 +1,10 @@
 """Functional graph primitives on :class:`GraphLevel` index tensors
 (port of ``octfusion_tpu/ops/graph_ops.py``).
 
-* ``graph_conv`` — scatter-mean over the 7 (row, dir) slots, then one GEMM;
-  a CUDA tensor goes through the hand-written kernel
-  (``ops/graph_conv_cuda.py``), a CPU tensor through its plain version;
+* ``graph_conv`` — scatter-mean over the 7 (row, dir) slots, then one GEMM,
+  differentiable: a CUDA tensor goes through the hand-written kernels
+  (``ops/graph_conv_cuda.py``; K1 forward, K2 and K3 backward), a CPU
+  tensor through their plain versions;
 * ``dual_group_norm`` — per-sample statistics over valid vertices with the
   reference's ``1/(count + eps)`` and ``var = E[x²] - mean²`` conventions;
 * ``downsample_splice`` / ``upsample_splice`` — the leaf-preserving level
@@ -27,17 +28,14 @@ def graph_conv(
     n_node_type: int = 0,
 ) -> torch.Tensor:
     """x: [G, C]; w: [7*(C+node_ch), C_out].  Returns [G, C_out]; vertices
-    without edges produce zero rows."""
+    without edges produce zero rows.  The node-type one-hot columns are
+    concatenated before the autograd function, so autograd slices their
+    gradient away."""
     if n_node_type > 1:
         onehot = F.one_hot(lvl.node_type, n_node_type).to(x.dtype)
         onehot = onehot * lvl.node_mask[:, None].to(x.dtype)
         x = torch.cat([x, onehot], dim=-1)
-    if x.is_cuda:
-        row_ptr, col, scale = lvl.csr()
-        return graph_conv_cuda.graph_conv(x.contiguous(), w.contiguous(),
-                                          row_ptr, col, scale)
-    return graph_conv_cuda.graph_conv_plain(
-        x, w, lvl.edge_row, lvl.edge_col, lvl.edge_dir, lvl.edge_scale)
+    return graph_conv_cuda.GraphConvFunction.apply(x, w, lvl)
 
 
 def dual_group_norm(
@@ -156,6 +154,14 @@ def upsample_splice(
     children = torch.where(o.node_mask(d)[:, None], children,
                            torch.zeros_like(children))
     return torch.cat([x[: spec.cur_off(d - 1)], leaf_seg, children], dim=0)
+
+
+def level_input_feature(g: DualGraph) -> torch.Tensor:
+    """Initial feature of the level-``depth`` graph: the octree's finest ND
+    signal on current-level vertices, zeros on the coarser leaves."""
+    d = g.spec.depth
+    sig = g.octree.signal
+    return torch.cat([sig.new_zeros((g.spec.cur_off(d), sig.shape[1])), sig])
 
 
 def graph_to_level_arrays(x: torch.Tensor, g: DualGraph, d: int):

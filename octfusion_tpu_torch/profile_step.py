@@ -1,35 +1,46 @@
-"""Device-time profile of one lr and one hr denoise step of the port, at
-the default configuration's full width (depth 8, caps from finest_cap
-131072, fp32 with TF32 off, batch 1, seeded random weights), on one CUDA
-card.
+"""Device-time profile of the port's steps at the full width of the
+reference-parity model, fp32 with TF32 off, seeded random weights, on one
+CUDA card.
 
-A two-step cascade grows the depth-``depth_stop`` graph the hr step runs
-on; then each stage's denoise call is warmed up and run ``--steps`` times:
-once timed on the host clock (device synchronised at the end) and once
-under ``torch.profiler``.  Per stage it prints the wall ms per step, the
-device ms per step (the summed duration of the kernels, memcpys and
-memsets the trace holds; one stream, so they do not overlap), the idle
-share ``1 - device / wall``, the device operations launched per step, and
-the eight kernels that take the most device time, with their launches per
+Without options: one lr and one hr denoise step at batch 1 (default
+configuration, caps from finest_cap 131072).  A two-step cascade grows
+the depth-``depth_stop`` graph the hr step runs on; then each stage's
+denoise call is warmed up and run ``--steps`` times.  With ``--train``:
+the hr-stage train step (``UnionSolver.make_train_step``; batch 4 of
+65536-point lumpy spheres, ``configs/octfusion_snet_uncond.yaml``), with
+fixed encoder eps, times and noise.
+
+Each profiled call is warmed up, timed ``--steps`` times on the host clock
+(device synchronised at the end) and run ``--steps`` times under
+``torch.profiler``.  It prints the wall ms per step, the device ms per
+step (the summed duration of the kernels, memcpys and memsets the trace
+holds; one stream, so they do not overlap), the idle share
+``1 - device / wall``, the device operations launched per step, and the
+eight kernels that take the most device time, with their launches per
 step.  The last line is the same as one JSON object.
 
-Usage: ``python -m octfusion_tpu_torch.profile_step [--steps N]``.
+Usage: ``python -m octfusion_tpu_torch.profile_step [--steps N] [--train]``.
 """
 
 import argparse
 import collections
 import json
+import os
 import time
 
 import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from .config import Config
+from .config import Config, load_config
 from .models.union_solver import UnionSolver
+from .utils.shapes import lumpy_spheres
 
 TOP = 8     # kernels listed per stage
 SEED = 0
+TRAIN_CONFIG = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+    "configs", "octfusion_snet_uncond.yaml")
 
 
 def _steps_wall_ms(fn, steps):
@@ -69,17 +80,7 @@ def profile_stage(fn, steps):
     }
 
 
-def main(argv=None):
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--steps", type=int, default=5,
-                    help="denoise steps profiled per stage")
-    args = ap.parse_args(argv)
-    if not torch.cuda.is_available():
-        raise SystemExit("profile_step: no CUDA device")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-
-    dev = torch.device("cuda")
+def _denoise_steps(dev, steps):
     cfg = Config()
     m = cfg.model
     torch.manual_seed(SEED)
@@ -94,14 +95,45 @@ def main(argv=None):
     s = 2**m.full_depth
     x_lr = torch.randn(1, s, s, s, 8, device=dev, generator=gen)
     x_lr_self = torch.zeros_like(x_lr)
-
-    result = {}
     with torch.no_grad():
-        result["hr"] = profile_stage(
-            lambda: solver.df("hr", x_hr, t, g=g), args.steps)
-        result["lr"] = profile_stage(
-            lambda: solver.df("lr", x_lr, t, x_self_cond=x_lr_self),
-            args.steps)
+        return {
+            "hr": profile_stage(lambda: solver.df("hr", x_hr, t, g=g), steps),
+            "lr": profile_stage(
+                lambda: solver.df("lr", x_lr, t, x_self_cond=x_lr_self),
+                steps),
+        }
+
+
+def _train_step(dev, steps):
+    cfg = load_config(TRAIN_CONFIG)
+    torch.manual_seed(SEED)
+    solver = UnionSolver(cfg, device=dev)
+    b = cfg.data.batch_size
+    pts, nrm = lumpy_spheres(b, cfg.data.points_per_shape, SEED, device=dev)
+    batch = {"points": pts, "normals": nrm}
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    shape = solver.code_shape(b)
+    draws = {"eps": torch.randn(shape, device=dev, generator=gen),
+             "times": torch.rand(b, device=dev, generator=gen),
+             "noise": torch.randn(shape, device=dev, generator=gen)}
+    step = solver.make_train_step()
+    return {"train": profile_stage(lambda: step(batch, **draws), steps)}
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--steps", type=int, default=5,
+                    help="steps profiled per stage")
+    ap.add_argument("--train", action="store_true",
+                    help="profile the hr train step instead of the denoise "
+                         "steps")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_step: no CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    result = (_train_step if args.train else _denoise_steps)(dev, args.steps)
     for stage, r in result.items():
         print(f"{stage}: wall_ms/step={r['wall_ms']:.3f} "
               f"device_ms/step={r['device_ms']:.3f} "

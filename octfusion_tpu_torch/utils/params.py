@@ -128,12 +128,23 @@ class _Bridge:
         self.conv1d(key_attn + ".proj_out", path_attn + ("proj_out",))
 
 
-def vae_decoder_state_dict(params: Dict, depth_stop: int = 6,
-                           depth_out: int = 8, resblk_num: int = 2
-                           ) -> Dict[str, torch.Tensor]:
-    """flax ``GraphVAE`` params -> the port's ``GraphVAE`` (decoder)
-    state dict; encoder parameters are not read."""
+def vae_state_dict(params: Dict, depth: int = 8, depth_stop: int = 6,
+                   depth_out: int = 8, resblk_num: int = 2
+                   ) -> Dict[str, torch.Tensor]:
+    """flax ``GraphVAE`` params -> the port's ``GraphVAE`` state dict,
+    encoder and decoder."""
     b = _Bridge(params)
+    b.graph_conv("conv1", ("conv1",))
+    for i in range(depth - depth_stop + 1):
+        b.graph_resblocks(f"encoder.{i}", (f"encoder_{i}",), resblk_num - 1)
+    for i in range(depth - depth_stop):
+        b.down_mix(f"downsample.{i}.downsample",
+                   (f"downsample_{i}", "downsample"))
+        if b.has((f"downsample_{i}", "conv1x1")):
+            b.conv1x1gn(f"downsample.{i}.conv1x1",
+                        (f"downsample_{i}", "conv1x1"))
+    b.gn_graph("encoder_norm_out", ("encoder_norm_out",))
+    b.conv1x1("KL_conv", ("KL_conv",), bias=True)
     b.conv1x1("post_KL_conv", ("post_KL_conv",), bias=True)
     b.graph_resblocks("decoder_mid.block_1", ("decoder_mid_block_1",),
                       resblk_num)

@@ -66,7 +66,7 @@ def run():
     st.df.load_state_dict(bridge.union_state_dict(params, st.union_cfg),
                           strict=True)
     st.vae.load_state_dict(
-        bridge.vae_decoder_state_dict(vae_params, 3, 4, 1), strict=True)
+        bridge.vae_state_dict(vae_params, 4, 3, 4, 1), strict=True)
 
     lr_noise = rng.normal(size=(STEPS + 1, 1, 8, 4, 4, 4)).astype(np.float32)
     g_cap = ct.capacity.octree_spec(4, 2).node_caps[2:4]
@@ -149,18 +149,30 @@ def test_cascade_end_to_end(run):
 
 
 def test_port_imports_no_jax():
+    """The port alone: a tiny cascade and two hr train steps."""
     code = (
         "import sys, torch\n"
         "from octfusion_tpu_torch import config as C\n"
+        "from octfusion_tpu_torch.models import common\n"
         "from octfusion_tpu_torch.models.union_solver import UnionSolver\n"
+        "from octfusion_tpu_torch.utils.shapes import lumpy_spheres\n"
         f"TINY = {TINY!r}\n"
         "cfg = C.Config(solver=C.SolverConfig(**TINY['solver']),\n"
         "    model=C.VAEConfig(**TINY['model']),\n"
         "    capacity=C.CapacityConfig(**TINY['capacity']),\n"
         "    diffusion=C.DiffusionConfig(**TINY['diffusion']))\n"
-        "out = UnionSolver(cfg).sample(steps=2, mesh=True,\n"
+        "solver = UnionSolver(cfg)\n"
+        "out = solver.sample(steps=2, mesh=True,\n"
         "    generator=torch.Generator().manual_seed(0))\n"
         "assert torch.isfinite(out['sdfs']).all()\n"
+        "pts, nrm = lumpy_spheres(2, 1024, seed=0)\n"
+        "octree = common.batch_to_octree(pts, nrm, solver.spec1)\n"
+        "assert not octree.overflow.any()\n"
+        "step = solver.make_train_step()\n"
+        "gen = torch.Generator().manual_seed(1)\n"
+        "for _ in range(2):\n"
+        "    ld = step({'points': pts, 'normals': nrm}, generator=gen)\n"
+        "assert torch.isfinite(ld['loss']) and ld['overflow'] == 0\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
         "       ('jax', 'jaxlib', 'flax', 'optax', 'octfusion_tpu')]\n"
         "assert not bad, bad\n"

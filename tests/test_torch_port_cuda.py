@@ -1,5 +1,7 @@
-"""Card-only tests of the port's CUDA graph-conv kernel against its plain
-PyTorch version.  They skip without a GPU; on one, run them with
+"""Card-only tests of the port's CUDA graph-conv kernels (K1 forward, K2
+column buffer, K3 input gradient) against their plain PyTorch versions,
+and of the differentiable graph conv on the card.  They skip without a
+GPU; on one, run them with
 
     python -m pytest tests/test_torch_port_cuda.py --noconftest -m cuda -q
 
@@ -53,9 +55,9 @@ def test_kernel_matches_plain(cuda, c, cout):
         x = torch.randn(lvl.g_cap, c, device=cuda, generator=gen)
         w = torch.randn(7 * c, cout, device=cuda, generator=gen) / (7 * c) ** 0.5
         row_ptr, col, scale = lvl.csr()
-        n0 = graph_conv_cuda.launches
+        n0 = graph_conv_cuda.launches["graph_conv_fwd"]
         got = graph_conv_cuda.graph_conv(x, w, row_ptr, col, scale)
-        assert graph_conv_cuda.launches == n0 + 1
+        assert graph_conv_cuda.launches["graph_conv_fwd"] == n0 + 1
         ref = graph_conv_cuda.graph_conv_plain(
             x, w, lvl.edge_row, lvl.edge_col, lvl.edge_dir, lvl.edge_scale)
         torch.cuda.synchronize()
@@ -71,13 +73,65 @@ def test_graph_conv_dispatch_and_cpu_parity(cuda):
     rng = np.random.RandomState(2)
     x = rng.normal(size=(lvl.g_cap, 16)).astype(np.float32)
     w = (rng.normal(size=(7 * (16 + 5), 24)) * 0.1).astype(np.float32)
-    n0 = graph_conv_cuda.launches
+    n0 = graph_conv_cuda.launches["graph_conv_fwd"]
     got = graph_ops.graph_conv(torch.tensor(x, device=cuda),
                                torch.tensor(w, device=cuda), lvl, 5)
-    assert graph_conv_cuda.launches == n0 + 1
+    assert graph_conv_cuda.launches["graph_conv_fwd"] == n0 + 1
     ref = graph_ops.graph_conv(torch.tensor(x), torch.tensor(w),
                                lvl.to("cpu"), 5)
     torch.testing.assert_close(got.cpu(), ref, rtol=TOL, atol=TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,cout", [(8, 128), (133, 128), (260, 256),
+                                    (772, 256), (31, 24)])
+def test_backward_kernels_match_plain(cuda, c, cout):
+    """K2 (column buffer) and K3 (dx over the transposed CSR) against
+    their plain versions at levels 4-6."""
+    g = _graph(cuda, seed=4)
+    gen = torch.Generator(device=cuda).manual_seed(c)
+    for d in (4, 5, 6):
+        lvl = g.level(d)
+        edges = (lvl.edge_row, lvl.edge_col, lvl.edge_dir, lvl.edge_scale)
+        x = torch.randn(lvl.g_cap, c, device=cuda, generator=gen)
+        dout = torch.randn(lvl.g_cap, cout, device=cuda, generator=gen)
+        w = torch.randn(7 * c, cout, device=cuda, generator=gen) / (7 * c) ** 0.5
+        n0 = dict(graph_conv_cuda.launches)
+        col = graph_conv_cuda.graph_conv_col(x, *lvl.csr())
+        dx = graph_conv_cuda.graph_conv_bwd_dx(dout, w, *lvl.csr_t())
+        assert graph_conv_cuda.launches["graph_conv_col"] == \
+            n0["graph_conv_col"] + 1
+        assert graph_conv_cuda.launches["graph_conv_bwd_dx"] == \
+            n0["graph_conv_bwd_dx"] + 1
+        col_ref = graph_conv_cuda.graph_conv_col_plain(x, *edges)
+        dx_ref = graph_conv_cuda.graph_conv_bwd_dx_plain(dout, w, *edges)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(col, col_ref, rtol=TOL, atol=TOL)
+        torch.testing.assert_close(dx, dx_ref, rtol=TOL, atol=TOL)
+
+
+@pytest.mark.cuda
+def test_graph_conv_is_differentiable_on_the_card(cuda):
+    """The repaired fault: on a CUDA tensor the graph conv used to return a
+    tensor without ``grad_fn``, so a loss through it gave no gradient
+    upstream.  Now its dx and dW match the CPU plain path's autograd."""
+    g = _graph(cuda, seed=5)
+    lvl = g.level(5)
+    rng = np.random.RandomState(6)
+    x = rng.normal(size=(lvl.g_cap, 32)).astype(np.float32)
+    w = (rng.normal(size=(7 * (32 + 4), 48)) * 0.1).astype(np.float32)
+    tgt = rng.normal(size=(lvl.g_cap, 48)).astype(np.float32)
+    grads = []
+    for dev, level in ((cuda, lvl), ("cpu", lvl.to("cpu"))):
+        xt = torch.tensor(x, device=dev).requires_grad_()
+        wt = torch.tensor(w, device=dev).requires_grad_()
+        out = graph_ops.graph_conv(xt, wt, level, 4)
+        assert out.grad_fn is not None
+        ((out - torch.tensor(tgt, device=dev)) ** 2).sum().backward()
+        grads.append((xt.grad.cpu(), wt.grad.cpu()))
+    for got, ref in zip(*grads):
+        torch.testing.assert_close(got, ref, rtol=1e-3, atol=1e-3)
+    assert grads[0][0].abs().sum() > 0
 
 
 @pytest.mark.cuda

@@ -50,14 +50,20 @@ def test_graph_conv_matches_segment_sum_and_pallas(graphs, n_node_type):
 
 
 def test_kernel_wrapper_refuses_cpu_tensors(graphs):
-    """The CUDA wrapper launches or raises; it never falls back."""
+    """The CUDA wrappers (K1, K2, K3) launch or raise; they never fall
+    back."""
     _, tg = graphs
     lvl = tg.level(3)
-    row_ptr, col, scale = lvl.csr()
+    csr, csr_t = lvl.csr(), lvl.csr_t()
     x = torch.zeros(lvl.g_cap, 4)
-    n0 = graph_conv_cuda.launches
+    w = torch.zeros(28, 4)
+    n0 = dict(graph_conv_cuda.launches)
     with pytest.raises(ValueError, match="CUDA"):
-        graph_conv_cuda.graph_conv(x, torch.zeros(28, 4), row_ptr, col, scale)
+        graph_conv_cuda.graph_conv(x, w, *csr)
+    with pytest.raises(ValueError, match="CUDA"):
+        graph_conv_cuda.graph_conv_col(x, *csr)
+    with pytest.raises(ValueError, match="CUDA"):
+        graph_conv_cuda.graph_conv_bwd_dx(x, w, *csr_t)
     assert graph_conv_cuda.launches == n0
 
 

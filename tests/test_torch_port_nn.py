@@ -41,8 +41,10 @@ HR_CFG = {"model_channels": 16, "channel_mult": (1, 1),
           "num_res_blocks": (1, 0), "input_depth": 3, "full_depth": 2}
 VAE = dict(depth=4, depth_stop=3, depth_out=4, resblk_num=1,
            channels=(4, 8, 8, 8, 8))
-_ENCODER = ("conv1.", "encoder.", "downsample.", "encoder_norm_out.",
-            "KL_conv.")
+# an encoder with residual blocks at every level and a channel change at
+# its downsample (the tiny VAE above has neither)
+VAE_ENC = dict(depth=4, depth_stop=3, depth_out=4, resblk_num=2,
+               channels=(4, 8, 8, 12, 8))
 
 
 def _jtree(t):
@@ -59,14 +61,13 @@ def _assert_same_tensors(got, want):
 
 def test_bridge_roundtrips_reference_state_dicts():
     rng = np.random.RandomState(0)
-    sd = tref.make_state_dict(rng, embed_dim=2, **VAE)
-    flax = tc.convert_vae(sd, depth=4, depth_stop=3, depth_out=4,
-                          resblk_num=1)
-    got = bridge.vae_decoder_state_dict(flax, 3, 4, 1)
-    dec = {k: v for k, v in sd.items() if not k.startswith(_ENCODER)}
-    _assert_same_tensors(got, dec)
-    vae = GraphVAE(embed_dim=2, **VAE)
-    vae.load_state_dict(got, strict=True)
+    for cfg in (VAE, VAE_ENC):
+        sd = tref.make_state_dict(rng, embed_dim=2, **cfg)
+        arch = {k: cfg[k] for k in ("depth", "depth_stop", "depth_out",
+                                    "resblk_num")}
+        got = bridge.vae_state_dict(tc.convert_vae(sd, **arch), **arch)
+        _assert_same_tensors(got, sd)
+        GraphVAE(embed_dim=2, **cfg).load_state_dict(got, strict=True)
 
     sd = tru.lr_make_state_dict(rng, LR_CFG, num_classes=3)
     flax = tc.convert_unet_lr(sd, LR_CFG["channel_mult"],
@@ -173,7 +174,7 @@ def test_vae_decode_grow_matches_jax():
     jg, ref = j_decode(_jtree(flax), jnp.asarray(code), src.octree)
 
     tm = GraphVAE(embed_dim=2, **VAE)
-    tm.load_state_dict(bridge.vae_decoder_state_dict(flax, 3, 4, 1))
+    tm.load_state_dict(bridge.vae_state_dict(flax, 4, 3, 4, 1), strict=True)
     tg = t_build(port_octree(jg.octree), 9, up_to=3)
     with torch.no_grad():
         got = tm.decode_grow(torch.tensor(code), tg)
@@ -188,3 +189,29 @@ def test_vae_decode_grow_matches_jax():
             np.testing.assert_allclose(np_(got["reg_voxs"][d][dd]),
                                        np_(ref["reg_voxs"][d][dd]), **TOL)
     assert_graph_equal(got["graph_out"], ref["graph_out"])
+
+
+def test_vae_encode_and_extract_code_match_jax():
+    rng = np.random.RandomState(8)
+    sd = tref.make_state_dict(rng, embed_dim=2, **VAE_ENC)
+    arch = {k: VAE_ENC[k] for k in ("depth", "depth_stop", "depth_out",
+                                    "resblk_num")}
+    flax = _jtree(tc.convert_vae(sd, **arch))
+    jm = JGraphVAE(full_depth=2, embed_dim=2, channels=VAE_ENC["channels"],
+                   use_checkpoint=False, **arch)
+    jg = make_graph(seed=9, depth=4, full_depth=2, n=400)
+    key = jax.random.PRNGKey(3)
+    (mean, logvar), code, eps = jax.jit(lambda p, g, k: (
+        jm.apply(p, g, method=JGraphVAE.encode),
+        jm.apply(p, g, k, method=JGraphVAE.extract_code),
+        jax.random.normal(k, (g.level(3).g_cap, 2))))(flax, jg, key)
+
+    tm = GraphVAE(embed_dim=2, **VAE_ENC)
+    tm.load_state_dict(bridge.vae_state_dict(flax, **arch), strict=True)
+    tg = t_build(port_octree(jg.octree), 9)
+    with torch.no_grad():
+        tmean, tlogvar = tm.encode(tg)
+        tcode = tm.extract_code(tg, eps=torch.tensor(np_(eps)))
+    assert np.abs(np_(mean)).max() > 0.1
+    for got, ref in ((tmean, mean), (tlogvar, logvar), (tcode, code)):
+        np.testing.assert_allclose(np_(got), np_(ref), **TOL)

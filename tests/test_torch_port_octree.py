@@ -1,7 +1,8 @@
 """Parity of the port's octree and dual-graph builders with the JAX
 package: the same inputs (made with numpy from a seed) must give the same
 arrays, padding, sentinels and overflow flags included — exactly, except
-``edge_scale`` (float32 1/count) to 1e-7."""
+``edge_scale`` (float32 1/count) to 1e-7 and the octree's ND signal
+(averaged normals and displacements) to 1e-6."""
 
 import numpy as np
 import pytest
@@ -128,3 +129,48 @@ def test_csr_row_ptr_matches_numpy_count():
         assert row_ptr.dtype == torch.int32 and col.dtype == torch.int32
         np.testing.assert_array_equal(np_(row_ptr), expect)
         assert lvl.csr() is lvl.csr()  # built once per level
+
+
+def _j_batch_to_octree(points, normals, jspec):
+    from octfusion_tpu.models.common import batch_to_octree_jit
+    return batch_to_octree_jit(jnp.asarray(points), jnp.asarray(normals),
+                               spec_single=jspec)
+
+
+@pytest.mark.parametrize("batch,finest_cap", [(2, 2048), (3, 160)])
+def test_build_and_merge_octrees_match_jax(batch, finest_cap):
+    """Point clouds -> per-sample octrees -> merged batch, slot for slot,
+    ND signal to 1e-6.  The second case's caps are too small: depths
+    overflow on both sides and keep the same first nodes."""
+    from octfusion_tpu_torch.models.common import batch_to_octree
+    from octfusion_tpu_torch.utils.shapes import lumpy_spheres
+
+    pts, nrm = lumpy_spheres(batch, 1500, seed=batch)
+    tspec = toct.OctreeSpec.create(5, 2, 1, finest_cap_per_sample=finest_cap,
+                                   decay=2.0)
+    jo = _j_batch_to_octree(np_(pts), np_(nrm), jspec_of(tspec))
+    to = batch_to_octree(pts, nrm, tspec)
+    assert_octree_equal(to, jo)
+    np.testing.assert_allclose(np_(to.signal), np_(jo.signal), rtol=1e-6,
+                               atol=1e-6)
+    assert bool(to.overflow.any()) == (finest_cap == 160)
+
+
+def test_transposed_csr_matches_numpy_sort():
+    jg = make_graph(seed=4)
+    tg = t_build(port_octree(jg.octree), 9)
+    for lvl in tg.levels:
+        trow_ptr, t_row, t_scale = lvl.csr_t()
+        row, col = np_(lvl.edge_row), np_(lvl.edge_col)
+        ok = row < lvl.g_cap
+        key = col[ok] * N_EDGE_TYPE + np_(lvl.edge_dir)[ok]
+        order = np.argsort(key, kind="stable")
+        counts = np.bincount(key, minlength=lvl.g_cap * N_EDGE_TYPE)
+        assert trow_ptr.dtype == t_row.dtype == torch.int32
+        np.testing.assert_array_equal(np_(trow_ptr),
+                                      np.concatenate([[0], np.cumsum(counts)]))
+        n = int(ok.sum())
+        np.testing.assert_array_equal(np_(t_row)[:n], row[ok][order])
+        np.testing.assert_array_equal(np_(t_scale)[:n],
+                                      np_(lvl.edge_scale)[ok][order])
+        assert lvl.csr_t() is lvl.csr_t()  # built once per level
