@@ -1,16 +1,18 @@
 """Smoke run of the PyTorch port (``octfusion_tpu_torch``) on one NVIDIA GPU.
 
-Drives the port's two main paths at the full width of the reference-parity
-model with seeded random weights, and checks the hand-written CUDA
-graph-conv kernels they run (K1 forward, K2 column buffer, K3 input
-gradient):
+Drives the port's three main paths (sampling and hr training at the full
+width of the reference-parity model with seeded random weights, and the
+evaluation metrics from meshes at the reference's 2048-point protocol),
+and checks the hand-written CUDA kernels they run (the graph conv's K1
+forward, K2 column buffer and K3 input gradient; the Chamfer kernel K4):
 
 1. device: the card's name and power limit; TF32 off for matmul and cuDNN;
-2. build: the kernels are compiled from ``octfusion_tpu_torch/csrc``;
+2. build: ``graph_conv.cu`` and ``chamfer.cu`` are compiled from
+   ``octfusion_tpu_torch/csrc``, one ``nvcc`` each, both at once;
 3. K1 vs plain: on the graph levels 4-8 of a short warm-up cascade, at
    every (C, C') pair the cascade's graph convs use, the kernel against its
    plain PyTorch version on the same tensors (rtol = atol = 1e-4), timed
-   with CUDA events;
+   with CUDA events beside its bound (``ops/roofline.py``);
 4. one full-width hr denoise step on the card (kernel) against the CPU
    (plain path), same weights and inputs (rtol = atol = 1e-3);
 5. the generation cascade (``UnionSolver.sample``: lr sampling, grow, hr
@@ -44,24 +46,49 @@ gradient):
    must stay bit for bit, K1 launches must equal the GraphConv forward calls (encoder and
    checkpoint recomputes included) and K2 launches = K3 launches = the
    backward calls of the graph conv; it prints the median ms/step after 2
-   warm-up steps, the stage split and the peak memory.
+   warm-up steps, the stage split and the peak memory;
+9. K4 vs plain: the 2048-point evaluation protocol at B = 16, 64 and 256
+   pairs, the ragged B = 2, N = 700, M = 1100, and near-duplicate clouds
+   (a and a + 1e-3 noise), all in the unit cube: the kernel against its
+   plain version (rtol 1e-4, atol 1e-6), with kernel / plain / library
+   (``torch.cdist`` squared and both minima, a yardstick the port never
+   calls) / bound ms and the share of the bound; then CD (K4), EMD fp32
+   and EMD bf16-stored pairs/s at B = 16, 64, 256, and bf16 vs fp32 EMD
+   at B = 16 (rtol 2.5e-3);
+10. evaluation (``python -m octfusion_tpu_torch.evaluate``): 32 sample and
+   32 reference ``.obj`` meshes, marching tetrahedra over seeded
+   lumpy-sphere fields on a 64³ grid from two seeds, to 1-NNA / COV / MMD
+   over CD and EMD at 2048 points and batch 8 on the card.  Every metric
+   must be finite, COV and 1-NNA in [0, 1], K4 launches = the tiles of the
+   three matrices, and the first 8 x 8 block of the CD and EMD matrices
+   equal to the CPU plain path's on the same clouds (CD rtol 1e-4, atol
+   1e-6; EMD rtol 1e-3).  Prints the metrics, pairs/s and peak memory.
 
 Prints the kernel summary as a JSON line (each kernel's ``launches`` is
-its count over the counted runs of phases 5 and 8; ``ms`` / ``plain_ms``
-sum the median times of phases 3 and 6), then the card's name and power
-limit, and last ``{"ok": true, "device": {...}}``.  Any failure raises:
-there is no CPU fallback.  The run uses one card, the first visible one.
-Usage: ``python3 chip_smoke.py [--steps N] [--seed S]``.
+its count over the counted runs of phases 5 and 8, K4's over phase 10;
+``ms``, ``plain_ms``, ``bound_ms`` and ``library_ms`` sum the shapes of
+phases 3 and 6, or 9; ``bound_by`` is the larger of the summed operation
+and byte times), then the card's name and power limit, and last
+``{"ok": true, "device": {...}}``.  Any failure raises: there is no CPU
+fallback.  The run uses one card, the first visible one.  Usage:
+``python3 chip_smoke.py [--steps N] [--seed S]``.
 """
 
 import argparse
+import concurrent.futures
 import copy
+import dataclasses
+import glob
 import json
 import math
 import os
 import statistics
 import subprocess
+import tempfile
 import time
+from typing import Optional
+
+import numpy as np
 
 # One card: expose only the first visible device, so the device count
 # reported on the last line is the number of cards the run used.
@@ -78,11 +105,76 @@ RESOLUTION = 256        # SDF grid side, as the reference
 TRAIN_STEPS = 12        # phase 8; at least 10, the first 2 are warm-up
 TRAIN_CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                             "configs", "octfusion_snet_uncond.yaml")
-SOURCE = "octfusion_tpu_torch/csrc/graph_conv.cu"
+# phases 9 and 10
+EVAL_POINTS = 2048      # points per cloud, the reference's protocol
+TOL_CHAMFER = dict(rtol=1e-4, atol=1e-6)   # fp32 clouds in the unit cube
+TOL_EMD_CARD = dict(rtol=1e-3, atol=0.0)   # card vs CPU: reduction order
+TOL_EMD_BF16 = dict(rtol=2.5e-3, atol=0.0)
+# phase 9: (case, B, N, M)
+CHAMFER_CASES = [("eval", 16, EVAL_POINTS, EVAL_POINTS),
+                 ("eval", 64, EVAL_POINTS, EVAL_POINTS),
+                 ("eval", 256, EVAL_POINTS, EVAL_POINTS),
+                 ("ragged", 2, 700, 1100),
+                 ("near_duplicate", 16, EVAL_POINTS, EVAL_POINTS)]
+# phase 10
+EVAL_SHAPES = 32        # sample meshes, and as many reference meshes
+EVAL_GRID = 64
+EVAL_BATCH = 8
+EVAL_ROW_BLOCK = 4      # pairwise_cd_emd's default
+EVAL_BLOCK = 8          # card vs CPU block of the matrices
+_CSRC = "octfusion_tpu_torch/csrc"
+SOURCES = {"graph_conv_fwd": f"{_CSRC}/graph_conv.cu",
+           "graph_conv_col": f"{_CSRC}/graph_conv.cu",
+           "graph_conv_bwd_dx": f"{_CSRC}/graph_conv.cu",
+           "chamfer": f"{_CSRC}/chamfer.cu"}
 _PALLAS = "octfusion_tpu/ops/pallas/graph_conv_kernel.py"
 REPLACES = {"graph_conv_fwd": f"{_PALLAS}:41",
             "graph_conv_col": f"{_PALLAS}:80",
-            "graph_conv_bwd_dx": f"{_PALLAS}:110"}
+            "graph_conv_bwd_dx": f"{_PALLAS}:110",
+            "chamfer": "octfusion_tpu/ops/pallas/chamfer_kernel.py:30"}
+
+
+@dataclasses.dataclass
+class KernelStats:
+    """One kernel over the shapes a phase checks it at: the largest error,
+    and the summed median times of the kernel, its plain version and the
+    library yardstick, and of its bound (with the operation and byte
+    times behind it)."""
+    max_abs_err: float = 0.0
+    ms: float = 0.0
+    plain_ms: float = 0.0
+    bound_ms: float = 0.0
+    ops_ms: float = 0.0
+    bytes_ms: float = 0.0
+    library_ms: Optional[float] = None
+
+    def add(self, err, ms, plain_ms, cost, library_ms=None) -> float:
+        """Adds one shape, ``cost`` = (flops, bytes); returns its bound."""
+        from octfusion_tpu_torch.ops import roofline
+
+        ops, nbytes = roofline.times_ms(*cost)
+        bound = max(ops, nbytes)
+        self.max_abs_err = max(self.max_abs_err, err)
+        self.ms += ms
+        self.plain_ms += plain_ms
+        self.bound_ms += bound
+        self.ops_ms += ops
+        self.bytes_ms += nbytes
+        if library_ms is not None:
+            self.library_ms = (self.library_ms or 0.0) + library_ms
+        return bound
+
+    def merge(self, other: "KernelStats") -> None:
+        self.max_abs_err = max(self.max_abs_err, other.max_abs_err)
+        for f in ("ms", "plain_ms", "bound_ms", "ops_ms", "bytes_ms"):
+            setattr(self, f, getattr(self, f) + getattr(other, f))
+
+    def entry(self) -> dict:
+        return {"max_abs_err": self.max_abs_err, "ms": self.ms,
+                "plain_ms": self.plain_ms, "bound_ms": self.bound_ms,
+                "bound_by": ("operations" if self.ops_ms >= self.bytes_ms
+                             else "bytes"),
+                "library_ms": self.library_ms}
 
 
 def smi() -> str:
@@ -146,13 +238,14 @@ def conv_shape_hooks(modules, shapes):
             for m in mod.modules() if isinstance(m, GraphConv)]
 
 
-def check_kernel(graph, shapes, gen):
+def check_kernel(graph, shapes, gen) -> KernelStats:
     """Phases 3 and 6: K1 vs its plain version at each (level, C, C') of
-    ``graph`` -> (max abs err, summed kernel ms, summed plain ms)."""
+    ``graph``."""
     from octfusion_tpu_torch.ops import graph_conv_cuda as k1
+    from octfusion_tpu_torch.ops import roofline
 
     dev = torch.device("cuda")
-    worst, ms_k, ms_p = 0.0, 0.0, 0.0
+    stats = KernelStats()
     for d, c, cout in sorted(shapes):
         lvl = graph.level(d)
         row_ptr, col, scale = lvl.csr()
@@ -166,18 +259,19 @@ def check_kernel(graph, shapes, gen):
         ref_max = ref.abs().max().item()
         if not ref_max > 0:
             raise AssertionError(f"all-zero reference at d={d} C={c}")
+        torch.testing.assert_close(got, ref, **TOL_KERNEL)
         tk = cuda_ms(lambda: k1.graph_conv(x, w, row_ptr, col, scale))
         tp = cuda_ms(lambda: k1.graph_conv_plain(
             x, w, lvl.edge_row, lvl.edge_col, lvl.edge_dir, lvl.edge_scale))
-        print(f"k1 d={d} G={lvl.g_cap} E={int(lvl.n_edges)} C={c} C'={cout}"
+        e = int(lvl.n_edges)
+        bound = stats.add(err, tk, tp,
+                          roofline.graph_conv_fwd_cost(lvl.g_cap, c, cout, e))
+        print(f"k1 d={d} G={lvl.g_cap} E={e} C={c} C'={cout}"
               f" max_abs_err={err:.3e} max_rel_err={err / ref_max:.3e}"
               f" tol=rtol {TOL_KERNEL['rtol']:g} atol {TOL_KERNEL['atol']:g}"
-              f" kernel_ms={tk:.4f} plain_ms={tp:.4f}", flush=True)
-        torch.testing.assert_close(got, ref, **TOL_KERNEL)
-        worst = max(worst, err)
-        ms_k += tk
-        ms_p += tp
-    return worst, ms_k, ms_p
+              f" kernel_ms={tk:.4f} plain_ms={tp:.4f} bound_ms={bound:.4f}",
+              flush=True)
+    return stats
 
 
 def check_hr_step(solver, g, seed):
@@ -204,12 +298,13 @@ def check_hr_step(solver, g, seed):
 
 def check_backward_kernels(graph, shapes, gen):
     """Phase 6: K2 and K3 vs their plain versions at each (level, C, C')
-    -> {kernel: (max abs err, summed kernel ms, summed plain ms)}."""
+    -> {kernel: KernelStats}."""
     from octfusion_tpu_torch.ops import graph_conv_cuda as k
+    from octfusion_tpu_torch.ops import roofline
 
     dev = torch.device("cuda")
-    res = {"graph_conv_col": [0.0, 0.0, 0.0],
-           "graph_conv_bwd_dx": [0.0, 0.0, 0.0]}
+    res = {"graph_conv_col": KernelStats(),
+           "graph_conv_bwd_dx": KernelStats()}
     for d, c, cout in sorted(shapes):
         lvl = graph.level(d)
         csr, csr_t = lvl.csr(), lvl.csr_t()
@@ -217,15 +312,19 @@ def check_backward_kernels(graph, shapes, gen):
         x = torch.randn(lvl.g_cap, c, device=dev, generator=gen)
         dout = torch.randn(lvl.g_cap, cout, device=dev, generator=gen)
         w = torch.randn(7 * c, cout, device=dev, generator=gen) / (7 * c) ** 0.5
+        e = int(lvl.n_edges)
         runs = {
-            "graph_conv_col": (lambda: k.graph_conv_col(x, *csr),
-                               lambda: k.graph_conv_col_plain(x, *edges)),
+            "graph_conv_col": (
+                lambda: k.graph_conv_col(x, *csr),
+                lambda: k.graph_conv_col_plain(x, *edges),
+                roofline.graph_conv_col_cost(lvl.g_cap, c, e)),
             "graph_conv_bwd_dx": (
                 lambda: k.graph_conv_bwd_dx(dout, w, *csr_t),
-                lambda: k.graph_conv_bwd_dx_plain(dout, w, *edges)),
+                lambda: k.graph_conv_bwd_dx_plain(dout, w, *edges),
+                roofline.graph_conv_bwd_dx_cost(lvl.g_cap, c, cout, e)),
         }
-        line = [f"d={d} G={lvl.g_cap} E={int(lvl.n_edges)} C={c} C'={cout}"]
-        for name, (kern, plain) in runs.items():
+        line = [f"d={d} G={lvl.g_cap} E={e} C={c} C'={cout}"]
+        for name, (kern, plain, cost) in runs.items():
             got, ref = kern(), plain()
             torch.cuda.synchronize()
             err = (got - ref).abs().max().item()
@@ -234,10 +333,9 @@ def check_backward_kernels(graph, shapes, gen):
             torch.testing.assert_close(got, ref, **TOL_KERNEL)
             del got, ref
             tk, tp = cuda_ms(kern), cuda_ms(plain)
-            r = res[name]
-            r[0], r[1], r[2] = max(r[0], err), r[1] + tk, r[2] + tp
+            bound = res[name].add(err, tk, tp, cost)
             line.append(f"{name} max_abs_err={err:.3e} kernel_ms={tk:.4f} "
-                        f"plain_ms={tp:.4f}")
+                        f"plain_ms={tp:.4f} bound_ms={bound:.4f}")
         print("k2k3 " + " | ".join(line) + f" tol=rtol "
               f"{TOL_KERNEL['rtol']:g} atol {TOL_KERNEL['atol']:g}",
               flush=True)
@@ -414,6 +512,168 @@ def check_training(seed):
     return measured, run_training(trainer, batch, draws, TRAIN_STEPS)
 
 
+def cdist_minima(a, b):
+    """The library yardstick of K4: one ``torch.cdist``, squared, and both
+    minima (the port never calls it)."""
+    d = torch.cdist(a, b).square()
+    return d.amin(2), d.amin(1)
+
+
+def check_chamfer(seed) -> KernelStats:
+    """Phase 9: K4 vs its plain version at the cases of ``CHAMFER_CASES``,
+    then CD / EMD pairs/s at the evaluation batches."""
+    from octfusion_tpu_torch.metrics import distances
+    from octfusion_tpu_torch.ops import chamfer_cuda as k4
+    from octfusion_tpu_torch.ops import roofline
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    stats = KernelStats()
+    cd_ms = {}
+    for case, bsz, n, m in CHAMFER_CASES:
+        a = torch.rand(bsz, n, 3, device=dev, generator=gen) - 0.5
+        if case == "near_duplicate":
+            b = a + 1e-3 * torch.randn(a.shape, device=dev, generator=gen)
+        else:
+            b = torch.rand(bsz, m, 3, device=dev, generator=gen) - 0.5
+        got, ref = k4.chamfer(a, b), k4.chamfer_plain(a, b)
+        torch.cuda.synchronize()
+        err = max((g - r).abs().max().item() for g, r in zip(got, ref))
+        for g, r in zip(got, ref):
+            torch.testing.assert_close(g, r, **TOL_CHAMFER)
+            if torch.signbit(g).any():
+                raise AssertionError(f"-0.0 in K4's output at {case}")
+        del got, ref
+        tk = cuda_ms(lambda: k4.chamfer(a, b))
+        tp = cuda_ms(lambda: k4.chamfer_plain(a, b))
+        tl = cuda_ms(lambda: cdist_minima(a, b))
+        bound = stats.add(err, tk, tp, roofline.chamfer_cost(bsz, n, m), tl)
+        if case == "eval":
+            cd_ms[bsz] = tk
+        print(f"k4 {case} B={bsz} N={n} M={m} max_abs_err={err:.3e} "
+              f"tol=rtol {TOL_CHAMFER['rtol']:g} atol {TOL_CHAMFER['atol']:g}"
+              f" kernel_ms={tk:.4f} plain_ms={tp:.4f} library_ms={tl:.4f} "
+              f"bound_ms={bound:.4f} share_of_bound={bound / tk:.3f}",
+              flush=True)
+    for bsz, tk in cd_ms.items():
+        a = torch.rand(bsz, EVAL_POINTS, 3, device=dev, generator=gen) - 0.5
+        b = torch.rand(bsz, EVAL_POINTS, 3, device=dev, generator=gen) - 0.5
+        emd_ms = {}
+        for store in (torch.float32, torch.bfloat16):
+            emd_ms[store] = cuda_ms(
+                lambda: distances.emd_approx(a, b, store_dtype=store),
+                reps=5, warmup=1)
+        if bsz == min(cd_ms):
+            e32 = distances.emd_approx(a, b)
+            e16 = distances.emd_approx(a, b, store_dtype=torch.bfloat16)
+            rel = ((e16 - e32).abs() / e32.abs()).max().item()
+            print(f"emd bf16 vs fp32 B={bsz} max_rel_diff={rel:.3e} tol=rtol"
+                  f" {TOL_EMD_BF16['rtol']:g}", flush=True)
+            torch.testing.assert_close(e16, e32, **TOL_EMD_BF16)
+        print(f"pairs_per_s B={bsz} P={EVAL_POINTS} cd_k4={bsz / tk * 1e3:.1f} "
+              f"emd_fp32={bsz / emd_ms[torch.float32] * 1e3:.1f} "
+              f"emd_bf16={bsz / emd_ms[torch.bfloat16] * 1e3:.1f} "
+              f"(ms: {tk:.4f} / {emd_ms[torch.float32]:.3f} / "
+              f"{emd_ms[torch.bfloat16]:.3f})", flush=True)
+    return stats
+
+
+def write_meshes(root, seed):
+    """Phase 10's meshes: ``EVAL_SHAPES`` lumpy spheres per set, marching
+    tetrahedra on the card over their fields on a ``EVAL_GRID``³ grid, one
+    seed per set -> the two globs."""
+    from octfusion_tpu_torch.utils import mesh as mesh_utils
+    from octfusion_tpu_torch.utils.shapes import lumpy_sphere_fields
+
+    dev = torch.device("cuda")
+    globs, faces_n = [], []
+    for kind, s in (("samples", seed + 100), ("reference", seed + 200)):
+        os.makedirs(os.path.join(root, kind))
+        fields = lumpy_sphere_fields(EVAL_SHAPES, EVAL_GRID, s, device=dev)
+        for i, field in enumerate(fields):
+            verts, faces = mesh_utils.marching_tetrahedra(field)
+            faces_n.append(faces.shape[0])
+            mesh_utils.save_obj(os.path.join(root, kind, f"{i:03d}.obj"),
+                                verts.cpu().numpy(), faces.cpu().numpy())
+        globs.append(os.path.join(root, kind, "*.obj"))
+    if min(faces_n) == 0:
+        raise AssertionError("an empty evaluation mesh")
+    print(f"eval meshes: {EVAL_SHAPES}+{EVAL_SHAPES} lumpy spheres, "
+          f"{EVAL_GRID}^3 grid, faces {min(faces_n)}-{max(faces_n)}",
+          flush=True)
+    return globs
+
+
+def check_evaluation(seed) -> int:
+    """Phase 10: ``python -m octfusion_tpu_torch.evaluate`` from meshes on
+    the card -> K4's launches in it."""
+    from octfusion_tpu_torch import evaluate
+    from octfusion_tpu_torch.metrics import distances
+    from octfusion_tpu_torch.ops import chamfer_cuda as k4
+
+    dev = torch.device("cuda")
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        samples, reference = write_meshes(root, seed)
+        t_mesh = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        k4.reset_launches()
+        t0 = time.perf_counter()
+        res = evaluate.main(["--samples", samples, "--reference", reference,
+                             "--points", str(EVAL_POINTS), "--emd",
+                             "--batch", str(EVAL_BATCH)])
+        wall = time.perf_counter() - t0
+        launches = k4.launches["chamfer"]
+        peak = torch.cuda.max_memory_allocated()
+
+        s = r = EVAL_SHAPES
+        tiles = sum(-(-rows // EVAL_ROW_BLOCK) * -(-cols // EVAL_BATCH)
+                    for rows, cols in ((s, r), (s, s), (r, r)))
+        pairs = s * r + s * s + r * r
+        print(f"eval: S={s} R={r} P={EVAL_POINTS} batch={EVAL_BATCH} "
+              f"mesh_s={t_mesh:.3f} wall_s={wall:.3f} sampling_s="
+              f"{res['wall_s_pointcloud_sampling']:.3f} pairwise_s="
+              f"{res['wall_s_pairwise_metrics']:.3f} pairs={pairs} "
+              f"pairs_per_s={pairs / res['wall_s_pairwise_metrics']:.1f} "
+              f"k4_launches={launches} tiles={tiles} peak_memory_bytes="
+              f"{peak} ({peak / 2**30:.2f} GiB)", flush=True)
+        print("eval metrics " + " ".join(f"{k}={v}" for k, v in res.items()),
+              flush=True)
+        if not all(math.isfinite(v) for v in res.values()):
+            raise AssertionError(f"non-finite metric: {res}")
+        for k in ("cov_cd", "cov_emd", "1nna_cd", "1nna_emd"):
+            if not 0.0 <= res[k] <= 1.0:
+                raise AssertionError(f"{k} = {res[k]} outside [0, 1]")
+        if launches != tiles:
+            raise AssertionError(f"K4 launches {launches} != tiles {tiles}")
+
+        # the first block of the sample x reference matrices, recomputed
+        # through the same tiles on the card and on the CPU (plain path)
+        k = EVAL_BLOCK
+        sp, _ = evaluate.meshes_to_pointclouds(
+            sorted(glob.glob(samples))[:k], EVAL_POINTS, seed=0)
+        rp, _ = evaluate.meshes_to_pointclouds(
+            sorted(glob.glob(reference))[:k], EVAL_POINTS, seed=10_000)
+        t0 = time.perf_counter()
+        card = distances.pairwise_cd_emd(
+            torch.tensor(sp, device=dev), torch.tensor(rp, device=dev),
+            EVAL_BATCH)
+        t_card = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cpu = distances.pairwise_cd_emd(torch.tensor(sp), torch.tensor(rp),
+                                        EVAL_BATCH)
+        t_cpu = time.perf_counter() - t0
+    errs = [np.abs(c - p).max() / np.abs(p).max() for c, p in zip(card, cpu)]
+    print(f"eval {k}x{k} block card vs cpu: cd max_err/max={errs[0]:.3e} "
+          f"emd max_err/max={errs[1]:.3e} tol cd rtol "
+          f"{TOL_CHAMFER['rtol']:g} atol {TOL_CHAMFER['atol']:g}, emd rtol "
+          f"{TOL_EMD_CARD['rtol']:g} card_s={t_card:.3f} cpu_s={t_cpu:.3f}",
+          flush=True)
+    np.testing.assert_allclose(card[0], cpu[0], **TOL_CHAMFER)
+    np.testing.assert_allclose(card[1], cpu[1], **TOL_EMD_CARD)
+    return launches
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=200,
@@ -428,7 +688,7 @@ def main(argv=None):
     from octfusion_tpu_torch.config import Config
     from octfusion_tpu_torch.models.union_solver import UnionSolver
     from octfusion_tpu_torch.nn.modules import GraphConv
-    from octfusion_tpu_torch.ops import graph_conv_cuda
+    from octfusion_tpu_torch.ops import chamfer_cuda, graph_conv_cuda
     from octfusion_tpu_torch.utils import mesh as mesh_utils
     from octfusion_tpu_torch.utils import sdf as sdf_utils
 
@@ -439,11 +699,15 @@ def main(argv=None):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    # ---- 2. build ----------------------------------------------------
+    # ---- 2. build: one nvcc per source, all at once ------------------
     t0 = time.perf_counter()
-    graph_conv_cuda.build()
-    print(f"build: graph_conv.cu (K1, K2, K3) {time.perf_counter() - t0:.2f} s",
-          flush=True)
+    with concurrent.futures.ThreadPoolExecutor() as pool:
+        builds = [pool.submit(mod.build) for mod in (graph_conv_cuda,
+                                                     chamfer_cuda)]
+        for fut in builds:
+            fut.result()
+    print(f"build: graph_conv.cu (K1, K2, K3) and chamfer.cu (K4) "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
 
     cfg = Config()
     m = cfg.model
@@ -475,16 +739,17 @@ def main(argv=None):
                         generator=gen.manual_seed(args.seed))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = graph_conv_cuda.launches["graph_conv_fwd"]
+    cascade_launches = graph_conv_cuda.launches["graph_conv_fwd"]
     calls = GraphConv.calls
     peak = torch.cuda.max_memory_allocated()
     print(f"cascade: steps={args.steps}+{args.steps} wall_s={wall:.3f} "
           + " ".join(f"{k}_s={v:.3f}" for k, v in out["seconds"].items()),
           flush=True)
-    print(f"k1 launches={launches} graph_conv_calls={calls}", flush=True)
-    if not (launches == calls and launches > 0):
-        raise AssertionError(f"kernel launches {launches} != GraphConv "
-                             f"calls {calls}")
+    print(f"k1 launches={cascade_launches} graph_conv_calls={calls}",
+          flush=True)
+    if not (cascade_launches == calls and cascade_launches > 0):
+        raise AssertionError(f"kernel launches {cascade_launches} != "
+                             f"GraphConv calls {calls}")
 
     dec = out["decode_out"]
     octree = dec["octree_out"]
@@ -527,16 +792,22 @@ def main(argv=None):
     # ---- 6-8. training ------------------------------------------------
     measured, train_launches = check_training(args.seed)
     # K1's entry covers both phases: the worst error, the summed times
-    k1_train = measured["graph_conv_fwd"]
-    measured["graph_conv_fwd"] = (max(k1[0], k1_train[0]), k1[1] + k1_train[1],
-                                  k1[2] + k1_train[2])
+    k1.merge(measured["graph_conv_fwd"])
+    measured["graph_conv_fwd"] = k1
+    launches = {name: train_launches[name] for name in measured}
+    launches["graph_conv_fwd"] += cascade_launches
+
+    # ---- 9. K4 vs plain; CD / EMD pairs/s ----------------------------
+    measured["chamfer"] = check_chamfer(args.seed)
+
+    # ---- 10. evaluation from meshes ----------------------------------
+    launches["chamfer"] = check_evaluation(args.seed)
+
     print(json.dumps({"kernels": [{
-        "name": name, "route": "cuda", "source": SOURCE,
-        "replaces": REPLACES[name],
-        "launches": train_launches[name] + (
-            launches if name == "graph_conv_fwd" else 0),
-        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-    } for name, (err, ms, plain_ms) in measured.items()]}), flush=True)
+        "name": name, "route": "cuda", "source": SOURCES[name],
+        "replaces": REPLACES[name], "launches": launches[name],
+        **stats.entry(),
+    } for name, stats in measured.items()]}), flush=True)
     print(smi(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -31,9 +31,11 @@ def sample_loop(
     eta: float = 1.0,
     solver: str = "ancestral",
     generator: Optional[torch.Generator] = None,
-    device="cpu",
+    *,
+    device,
 ):
-    """Returns the final state after ``steps`` ancestral updates.
+    """Returns the final state after ``steps`` ancestral updates, on
+    ``device`` (the caller's; there is no default).
 
     ``noise_stream``: optional external noise replacing ``generator`` —
     entry 0 is the initial state, entries ``1..steps`` the per-step

@@ -30,6 +30,7 @@ from ..octree import split_codec
 from ..octree.dual_graph import GraphSpec, build_dual_graph
 from ..utils import mesh as mesh_utils
 from ..utils import sdf as sdf_utils
+from ..utils.device import resolve_device
 from .common import batch_to_graph
 
 
@@ -51,10 +52,12 @@ class _Laps:
 
 
 class UnionSolver:
-    def __init__(self, cfg: Config, stage_flag: str = "hr", device="cpu"):
+    def __init__(self, cfg: Config, stage_flag: str = "hr", device="cuda"):
+        """Runs on the card unless ``device="cpu"``; without a card the
+        default raises."""
         self.cfg = cfg
         self.stage_flag = stage_flag
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         d = cfg.diffusion
         m = cfg.model
         self.union_cfg = UnionConfig(

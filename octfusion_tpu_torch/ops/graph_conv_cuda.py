@@ -50,20 +50,15 @@ and loaded with ``ctypes``.
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
-import shutil
-import subprocess
 
 import torch
 from torch.autograd.function import once_differentiable
 
+from . import cuda_lib
+
 N_EDGE_TYPE = 7
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG, "csrc", "graph_conv.cu")
-BUILD_DIR = os.path.join(_PKG, "build")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+SOURCE = os.path.join(cuda_lib.CSRC, "graph_conv.cu")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C entry point -> argument types (pointers, ints, then the stream)
@@ -83,53 +78,17 @@ def reset_launches() -> None:
         launches[name] = 0
 
 
-def _nvcc() -> str:
-    for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found: the graph-conv kernels are built with "
-                       "the CUDA toolkit at first use on a GPU")
-
-
 def build() -> str:
     """Compile ``csrc/graph_conv.cu`` (if this exact source has not been
     built yet) and return the library path."""
-    with open(SOURCE, "rb") as fh:
-        digest = hashlib.sha256(fh.read() + " ".join(NVCC_FLAGS).encode())
-    lib = os.path.join(BUILD_DIR, f"libgraph_conv_{digest.hexdigest()[:12]}.so")
-    if os.path.exists(lib):
-        return lib
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{lib}.{os.getpid()}.tmp"
-    res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE],
-                         capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    os.replace(tmp, lib)
-    return lib
+    return cuda_lib.build(SOURCE)
 
 
 def _load():
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(build())
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        _lib = lib
+        _lib = cuda_lib.load(SOURCE, _SIGNATURES)
     return _lib
-
-
-def _check(t: torch.Tensor, name: str, dtype, ndim: int, device):
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
-    if t.dim() != ndim:
-        raise ValueError(f"{name} has {t.dim()} dims, expected {ndim}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
 
 
 def _check_inputs(name, feats, csr, g):
@@ -140,11 +99,11 @@ def _check_inputs(name, feats, csr, g):
                          f"{name}_plain on the CPU")
     dev = feats[0][1].device
     for fname, t in feats:
-        _check(t, fname, torch.float32, 2, dev)
+        cuda_lib.check(t, fname, torch.float32, 2, dev)
     ptr, idx, scale = csr
-    _check(ptr, "row_ptr", torch.int32, 1, dev)
-    _check(idx, "col", torch.int32, 1, dev)
-    _check(scale, "scale", torch.float32, 1, dev)
+    cuda_lib.check(ptr, "row_ptr", torch.int32, 1, dev)
+    cuda_lib.check(idx, "col", torch.int32, 1, dev)
+    cuda_lib.check(scale, "scale", torch.float32, 1, dev)
     if ptr.shape[0] != g * N_EDGE_TYPE + 1:
         raise ValueError(f"row_ptr has {ptr.shape[0]} entries, expected "
                          f"G*7+1 = {g * N_EDGE_TYPE + 1}")
@@ -154,12 +113,7 @@ def _check_inputs(name, feats, csr, g):
 
 
 def _launch(name: str, dev, *args) -> None:
-    fn = getattr(_load(), name)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(*args, stream)
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+    cuda_lib.call(_load(), name, dev, *args)
     launches[name] += 1
 
 

@@ -6,6 +6,12 @@ match between neighbouring cubes.  The port runs on the grid's device (the
 reference runs in numpy on the host) and gives the same vertices and faces:
 the same active-cell order, the same float32 interpolation, and the same
 welding by quantised vertex key with first-occurrence representatives.
+
+The evaluation's mesh helpers stay numpy on the host, as in the JAX
+package (``save_obj``, ``load_obj``, ``sample_surface``: copies of the
+functions of the same names there, so a seed gives bit-identical clouds in
+both packages), with the unit-cube normalisation of ``tools/evaluate.py``
+(``normalize_unit_cube``).
 """
 
 from __future__ import annotations
@@ -149,3 +155,60 @@ def marching_tetrahedra(sdf: torch.Tensor, level: float = 0.0):
     ok = ((faces_w[:, 0] != faces_w[:, 1]) & (faces_w[:, 1] != faces_w[:, 2])
           & (faces_w[:, 0] != faces_w[:, 2]))
     return verts[first], faces_w[ok]
+
+
+def save_obj(path: str, verts: np.ndarray, faces: np.ndarray):
+    with open(path, "w") as fh:
+        for v in verts:
+            fh.write(f"v {v[0]:.6f} {v[1]:.6f} {v[2]:.6f}\n")
+        for f in faces:
+            fh.write(f"f {f[0] + 1} {f[1] + 1} {f[2] + 1}\n")
+
+
+def load_obj(path: str):
+    verts, faces = [], []
+    with open(path) as fh:
+        for line in fh:
+            if line.startswith("v "):
+                verts.append([float(x) for x in line.split()[1:4]])
+            elif line.startswith("f "):
+                idx = [int(tok.split("/")[0]) - 1 for tok in line.split()[1:4]]
+                faces.append(idx)
+    return np.asarray(verts, np.float64), np.asarray(faces, np.int64)
+
+
+def normalize_unit_cube(verts: np.ndarray) -> np.ndarray:
+    """Centre the bounding box at the origin and scale its longest side to
+    1 (the reference's ``metrics/generate_pointclouds.py:28-37``)."""
+    centre = (verts.min(0) + verts.max(0)) / 2
+    scale = (verts.max(0) - verts.min(0)).max()
+    return (verts - centre) / max(scale, 1e-9)
+
+
+def sample_surface(verts: np.ndarray, faces: np.ndarray, n: int, seed=0,
+                   return_normals: bool = False):
+    """Area-weighted uniform surface samples (replaces
+    trimesh.sample.sample_surface for the eval protocol,
+    `metrics/generate_pointclouds.py:23-37`)."""
+    rng = np.random.RandomState(seed)
+    tri = verts[faces]
+    cross = np.cross(tri[:, 1] - tri[:, 0], tri[:, 2] - tri[:, 0])
+    area = 0.5 * np.linalg.norm(cross, axis=-1)
+    total = area.sum()
+    if total <= 0 or len(faces) == 0:
+        pts = np.zeros((n, 3))
+        return (pts, np.zeros((n, 3))) if return_normals else pts
+    probs = area / total
+    fi = rng.choice(len(faces), size=n, p=probs)
+    r1 = np.sqrt(rng.uniform(size=n))
+    r2 = rng.uniform(size=n)
+    a, b, c = tri[fi, 0], tri[fi, 1], tri[fi, 2]
+    pts = (1 - r1)[:, None] * a + (r1 * (1 - r2))[:, None] * b + (
+        r1 * r2
+    )[:, None] * c
+    if return_normals:
+        nrm = cross[fi]
+        nrm = nrm / np.maximum(np.linalg.norm(nrm, axis=-1, keepdims=True),
+                               1e-12)
+        return pts, nrm
+    return pts

@@ -1,5 +1,6 @@
-"""Seeded analytic point clouds for driving the training path without a
-dataset: lumpy spheres with exact normals."""
+"""Seeded analytic shapes for driving the port without a dataset: lumpy
+spheres as point clouds with exact normals (training) and as signed fields
+on a grid (meshes for the evaluation path)."""
 
 from __future__ import annotations
 
@@ -34,3 +35,24 @@ def lumpy_spheres(batch_size: int, n_points: int, seed: int = 0,
     normals = u - tangential / rho[..., None]
     normals = normals / normals.norm(dim=-1, keepdim=True)
     return points.to(device), normals.to(device)
+
+
+def lumpy_sphere_fields(batch_size: int, resolution: int, seed: int = 0,
+                        device="cpu") -> torch.Tensor:
+    """-> [B, R, R, R] f32 samples of ``F(p) = |p| - rho(p / |p|)`` on the
+    grid ``linspace(-0.5, 0.5, R)^3`` (x-major), negative inside: the
+    surfaces of :func:`lumpy_spheres`, with (R, a, k, axis) drawn from the
+    same ranges, as fields whose zero level set a mesher extracts.  Drawn on
+    the CPU from ``seed``."""
+    gen = torch.Generator().manual_seed(seed)
+    b = batch_size
+    radius, amp, freq = (lo + span * torch.rand(b, 1, 1, 1, generator=gen)
+                         for lo, span in ((0.3, 0.08), (0.02, 0.04),
+                                          (3.0, 3.0)))
+    axis = torch.randn(b, 3, generator=gen)
+    axis = axis / axis.norm(dim=-1, keepdim=True)
+    c = torch.linspace(-0.5, 0.5, resolution)
+    p = torch.stack(torch.meshgrid(c, c, c, indexing="ij"), -1)
+    r = p.norm(dim=-1)
+    t = torch.einsum("xyzk,bk->bxyz", p / r.clamp(min=1e-9)[..., None], axis)
+    return (r - (radius + amp * torch.sin(freq * t))).to(device)

@@ -11,8 +11,8 @@ octrees and dual graphs exactly.  Then one end-to-end pass of the port at
 the same seed, which asserts its own margins (lr pre-snap values and
 decoder split logits away from zero by more than 1e-3) and must reproduce
 the JAX octree, depth-stop graph, codes (1e-4) and SDF grid (1e-4).
-Finally a subprocess runs the port alone and checks that it imported
-nothing of JAX."""
+Finally a subprocess runs the port alone (sampling, training and
+evaluation) and checks that it imported nothing of JAX."""
 
 import os
 import subprocess
@@ -62,7 +62,7 @@ def run():
     vae_params = perturb(jax.device_get(jax.jit(sj.vae.init)(
         jax.random.PRNGKey(1), g_in, None, jax.random.PRNGKey(2))), rng)
 
-    st = TSolver(ct)
+    st = TSolver(ct, device="cpu")
     st.df.load_state_dict(bridge.union_state_dict(params, st.union_cfg),
                           strict=True)
     st.vae.load_state_dict(
@@ -149,7 +149,8 @@ def test_cascade_end_to_end(run):
 
 
 def test_port_imports_no_jax():
-    """The port alone: a tiny cascade and two hr train steps."""
+    """The port alone: a tiny cascade, two hr train steps and a tiny
+    evaluation (CD and EMD metrics)."""
     code = (
         "import sys, torch\n"
         "from octfusion_tpu_torch import config as C\n"
@@ -161,7 +162,7 @@ def test_port_imports_no_jax():
         "    model=C.VAEConfig(**TINY['model']),\n"
         "    capacity=C.CapacityConfig(**TINY['capacity']),\n"
         "    diffusion=C.DiffusionConfig(**TINY['diffusion']))\n"
-        "solver = UnionSolver(cfg)\n"
+        "solver = UnionSolver(cfg, device='cpu')\n"
         "out = solver.sample(steps=2, mesh=True,\n"
         "    generator=torch.Generator().manual_seed(0))\n"
         "assert torch.isfinite(out['sdfs']).all()\n"
@@ -173,6 +174,14 @@ def test_port_imports_no_jax():
         "for _ in range(2):\n"
         "    ld = step({'points': pts, 'normals': nrm}, generator=gen)\n"
         "assert torch.isfinite(ld['loss']) and ld['overflow'] == 0\n"
+        "import numpy as np\n"
+        "from octfusion_tpu_torch import evaluate\n"
+        "from octfusion_tpu_torch.metrics import evaluation\n"
+        "rng = np.random.RandomState(0)\n"
+        "pts = rng.normal(size=(2, 5, 32, 3)).astype(np.float32)\n"
+        "res = evaluation.evaluate_point_sets(pts[0], pts[1], batch=4,\n"
+        "                                     device='cpu')\n"
+        "assert all(np.isfinite(v) for v in res.values()), res\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
         "       ('jax', 'jaxlib', 'flax', 'optax', 'octfusion_tpu')]\n"
         "assert not bad, bad\n"

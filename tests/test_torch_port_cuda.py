@@ -1,7 +1,8 @@
-"""Card-only tests of the port's CUDA graph-conv kernels (K1 forward, K2
-column buffer, K3 input gradient) against their plain PyTorch versions,
-and of the differentiable graph conv on the card.  They skip without a
-GPU; on one, run them with
+"""Card-only tests of the port's CUDA kernels against their plain PyTorch
+versions: the graph conv's K1 forward, K2 column buffer and K3 input
+gradient, the differentiable graph conv on the card, and the Chamfer
+kernel K4 with the evaluation's tile loop.  They skip without a GPU; on
+one, run them with
 
     python -m pytest tests/test_torch_port_cuda.py --noconftest -m cuda -q
 
@@ -15,7 +16,8 @@ import torch
 from octfusion_tpu_torch.octree.dual_graph import build_dual_graph
 from octfusion_tpu_torch.octree.octree import OctreeSpec
 from octfusion_tpu_torch.octree.split_codec import split2octree_small
-from octfusion_tpu_torch.ops import graph_conv_cuda, graph_ops
+from octfusion_tpu_torch.metrics import distances
+from octfusion_tpu_torch.ops import chamfer_cuda, graph_conv_cuda, graph_ops
 
 # fp32 on both sides, different summation order: rtol = atol = 1e-4
 TOL = 1e-4
@@ -147,3 +149,87 @@ def test_kernel_rejects_bad_inputs(cuda):
         graph_conv_cuda.graph_conv(x, w[:55], row_ptr, col, scale)
     with pytest.raises(ValueError):
         graph_conv_cuda.graph_conv(x.t(), w, row_ptr, col, scale)
+
+
+# K4: fp32 clouds in the unit cube, direct form against the plain
+# version's expansion, whose cancellation is <= ~1e-7 |a|^2
+TOL_CHAMFER = dict(rtol=1e-4, atol=1e-6)
+
+
+def _clouds(device, case, seed=0):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    if case == "ragged":   # N != M, neither a multiple of the 128-row tile
+        return (torch.rand(2, 700, 3, device=device, generator=gen) - 0.5,
+                torch.rand(2, 1100, 3, device=device, generator=gen) - 0.5)
+    a = torch.rand(4, 2048, 3, device=device, generator=gen) - 0.5
+    return a, a + 1e-3 * torch.randn(a.shape, device=device, generator=gen)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["ragged", "near_duplicate"])
+def test_chamfer_kernel_matches_plain(cuda, case):
+    a, b = _clouds(cuda, case)
+    n0 = chamfer_cuda.launches["chamfer"]
+    got = chamfer_cuda.chamfer(a, b)
+    assert chamfer_cuda.launches["chamfer"] == n0 + 1
+    ref = chamfer_cuda.chamfer_plain(a, b)
+    torch.cuda.synchronize()
+    for g, r in zip(got, ref):
+        torch.testing.assert_close(g, r, **TOL_CHAMFER)
+        assert not torch.signbit(g).any()   # +0.0, never -0.0
+    if case == "near_duplicate":
+        assert got[0].max() < 1e-4
+
+
+@pytest.mark.cuda
+def test_chamfer_dispatch(cuda, monkeypatch):
+    """A CPU tensor never reaches the kernel and a CUDA tensor never
+    reaches the plain version."""
+    a, b = _clouds("cpu", "ragged")
+    n0 = chamfer_cuda.launches["chamfer"]
+    cpu = distances.chamfer(a, b)
+    assert chamfer_cuda.launches["chamfer"] == n0
+    with pytest.raises(ValueError, match="CUDA"):
+        chamfer_cuda.chamfer(a, b)
+
+    def no_plain(*args):
+        raise AssertionError("a CUDA tensor reached the plain version")
+
+    monkeypatch.setattr(chamfer_cuda, "chamfer_plain", no_plain)
+    got = distances.chamfer(a.to(cuda), b.to(cuda))
+    assert chamfer_cuda.launches["chamfer"] == n0 + 1
+    for g, r in zip(got, cpu):
+        torch.testing.assert_close(g.cpu(), r, **TOL_CHAMFER)
+
+
+@pytest.mark.cuda
+def test_chamfer_kernel_rejects_bad_inputs(cuda):
+    a, b = _clouds(cuda, "ragged")
+    with pytest.raises(TypeError):
+        chamfer_cuda.chamfer(a.double(), b.double())
+    with pytest.raises(ValueError):
+        chamfer_cuda.chamfer(a[..., :2].contiguous(), b[..., :2].contiguous())
+    with pytest.raises(ValueError):
+        chamfer_cuda.chamfer(a.transpose(0, 1), b)
+    with pytest.raises(ValueError):
+        chamfer_cuda.chamfer(a, b[:1])
+    with pytest.raises(ValueError):
+        chamfer_cuda.chamfer(a, b.cpu())
+
+
+@pytest.mark.cuda
+def test_pairwise_on_the_card_matches_cpu(cuda):
+    """The padded tile loop on the card: one K4 launch per tile, and the
+    same matrices as the CPU path.  EMD at rtol 2e-3: at a few hundred
+    points the auction carries float32 rounding (exp, reduction order) to
+    ~1e-3 relative, as against the JAX package on the CPU."""
+    gen = torch.Generator().manual_seed(3)
+    s = torch.rand(5, 256, 3, generator=gen) - 0.5
+    r = torch.rand(6, 300, 3, generator=gen) - 0.5
+    n0 = chamfer_cuda.launches["chamfer"]
+    got = distances.pairwise_cd_emd(s.to(cuda), r.to(cuda), batch=4,
+                                    row_block=2)
+    assert chamfer_cuda.launches["chamfer"] == n0 + 3 * 2
+    ref = distances.pairwise_cd_emd(s, r, batch=4, row_block=2)
+    np.testing.assert_allclose(got[0], ref[0], **TOL_CHAMFER)
+    np.testing.assert_allclose(got[1], ref[1], rtol=2e-3)

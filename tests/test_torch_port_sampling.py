@@ -51,7 +51,8 @@ def test_sample_loop_matches_jax(df_type, snap, eta):
             jnp.asarray(noise))
     got = tsampler.sample_loop(
         tfn, shape, 2, steps, tschedule.beta_linear_log_snr, df_type=df_type,
-        truncated_index=trunc, snap_sign=snap, noise_stream=noise, eta=eta)
+        truncated_index=trunc, snap_sign=snap, noise_stream=noise, eta=eta,
+        device="cpu")
     np.testing.assert_allclose(np_(got), np_(ref), rtol=1e-4, atol=1e-4)
 
 
@@ -59,7 +60,8 @@ def test_sample_loop_rejects_short_noise_stream():
     _, tfn = _denoisers()
     with pytest.raises(ValueError, match="steps\\+1"):
         tsampler.sample_loop(tfn, (1, 3), 1, 4, tschedule.beta_linear_log_snr,
-                             noise_stream=np.zeros((2, 1, 3), np.float32))
+                             noise_stream=np.zeros((2, 1, 3), np.float32),
+                             device="cpu")
 
 
 def test_mpu_grid_eval_matches_jax():

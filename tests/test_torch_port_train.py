@@ -142,7 +142,7 @@ def solvers():
     pts, nrm = lumpy_spheres(B, 2048, seed=3)
 
     def port_solver():
-        st = TSolver(ct)
+        st = TSolver(ct, device="cpu")
         st.df.load_state_dict(bridge.union_state_dict(params, st.union_cfg),
                               strict=True)
         st.vae.load_state_dict(bridge.vae_state_dict(
