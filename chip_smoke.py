@@ -1,10 +1,11 @@
 """Smoke run of the PyTorch port (``octfusion_tpu_torch``) on one NVIDIA GPU.
 
-Drives the port's three main paths (sampling and hr training at the full
-width of the reference-parity model with seeded random weights, and the
-evaluation metrics from meshes at the reference's 2048-point protocol),
-and checks the hand-written CUDA kernels they run (the graph conv's K1
-forward, K2 column buffer and K3 input gradient; the Chamfer kernel K4):
+Drives the port's main paths (sampling and hr training at the full width
+of the reference-parity model with seeded random weights, the evaluation
+metrics from meshes at the reference's 2048-point protocol, and the
+DPM-Solver++ generation path with its CLI), and checks the hand-written
+CUDA kernels they run (the graph conv's K1 forward, K2 column buffer, K3
+input gradient and K5 packed forward; the Chamfer kernel K4):
 
 1. device: the card's name and power limit; TF32 off for matmul and cuDNN;
 2. build: ``graph_conv.cu`` and ``chamfer.cu`` are compiled from
@@ -62,15 +63,41 @@ forward, K2 column buffer and K3 input gradient; the Chamfer kernel K4):
    must be finite, COV and 1-NNA in [0, 1], K4 launches = the tiles of the
    three matrices, and the first 8 x 8 block of the CD and EMD matrices
    equal to the CPU plain path's on the same clouds (CD rtol 1e-4, atol
-   1e-6; EMD rtol 1e-3).  Prints the metrics, pairs/s and peak memory.
+   1e-6; EMD rtol 1e-3).  Prints the metrics, pairs/s and peak memory;
+11. K5 vs plain and vs K1 (run right after phase 3, on its warm-up graph):
+   at every (level, C, C') of levels 4-6 that phase 3 saw (the hr U-Net's
+   convs and the decoder's depth-6 convs, which K5 runs when the sampling
+   graph is packed) and the ragged 515 -> 512 and 131 -> 128, K5 against
+   its plain version (rtol = atol = 1e-4), timed with K1 on the same
+   tensors (CUDA events, median of 20) beside its bound at the TF32
+   tensor-core rate; then K5 under autograd must raise, launching nothing;
+12. the DPM-Solver++(2M) cascade at full width (``Config()`` with
+   ``sampler="dpmpp"``, 25 + 25 steps, batch 1, 256³ SDF grid), seeded
+   weights perturbed with seeded noise (the zero-initialised hr output
+   conv would otherwise make the hr stage ignore its convs) and the same
+   injected initial noise, once with ``kpack=True`` (K5 on the packed
+   depth <= 6 graph) and once with ``kpack=False`` (K1): the same octree
+   and graph, codes within 1e-3 of their own max |code|, finite codes and
+   grid, K5 launches = the GraphConv calls on packed levels and K1
+   launches = the rest; prints each run's stage seconds and peak memory;
+13. the CLI, ``python -m octfusion_tpu_torch.generate`` as a subprocess
+   with ``OCTFUSION_CONV_KPACK=1``: 4 shapes at full width with ``--sampler
+   dpmpp --sample_steps 25`` from the phase-12 weights, which the phase
+   first writes with ``utils/ckpt.save`` (reference checkpoint layout, and
+   the VAE's ``autoencoder`` entry), into a temp dir, with a temp config
+   whose one change is ``solver.resolution: 64`` (random weights decode
+   noise, whose 256³ mesh is ~10^8 faces of text): 4 non-empty ``.obj``
+   files, 4 ``[*] wrote`` lines and K5 launches in its summary line; a
+   second run must skip all 4.
 
 Prints the kernel summary as a JSON line (each kernel's ``launches`` is
-its count over the counted runs of phases 5 and 8, K4's over phase 10;
-``ms``, ``plain_ms``, ``bound_ms`` and ``library_ms`` sum the shapes of
-phases 3 and 6, or 9; ``bound_by`` is the larger of the summed operation
-and byte times), then the card's name and power limit, and last
-``{"ok": true, "device": {...}}``.  Any failure raises: there is no CPU
-fallback.  The run uses one card, the first visible one.  Usage:
+its count over the counted runs of phases 5, 8 and 12, K4's over phase
+10; ``ms``, ``plain_ms``, ``bound_ms`` and ``library_ms`` sum the shapes
+of phases 3 and 6, 9, or 11, and K5's ``k1_ms`` is K1 on phase 11's
+shapes; ``bound_by`` is the larger of the summed operation and byte
+times), then the card's name and power limit, and last ``{"ok": true,
+"device": {...}}``.  Any failure raises: there is no CPU fallback.  The
+run uses one card, the first visible one.  Usage:
 ``python3 chip_smoke.py [--steps N] [--seed S]``.
 """
 
@@ -84,6 +111,7 @@ import math
 import os
 import statistics
 import subprocess
+import sys
 import tempfile
 import time
 from typing import Optional
@@ -122,16 +150,25 @@ EVAL_GRID = 64
 EVAL_BATCH = 8
 EVAL_ROW_BLOCK = 4      # pairwise_cd_emd's default
 EVAL_BLOCK = 8          # card vs CPU block of the matrices
+# phases 11-13
+RAGGED_PACKED = {(4, 515, 512), (6, 131, 128)}   # (level, C, C')
+DPMPP_STEPS = 25        # per stage, as bench.py's dpmpp_25step_s_per_shape
+TOL_KPACK_CODE = 1e-3   # K5 vs K1 codes / max |code|
+CLI_SHAPES = 4
+CLI_RESOLUTION = 64
+REPO = os.path.dirname(os.path.abspath(__file__))
 _CSRC = "octfusion_tpu_torch/csrc"
 SOURCES = {"graph_conv_fwd": f"{_CSRC}/graph_conv.cu",
            "graph_conv_col": f"{_CSRC}/graph_conv.cu",
            "graph_conv_bwd_dx": f"{_CSRC}/graph_conv.cu",
-           "chamfer": f"{_CSRC}/chamfer.cu"}
+           "chamfer": f"{_CSRC}/chamfer.cu",
+           "graph_conv_fwd_packed": f"{_CSRC}/graph_conv.cu"}
 _PALLAS = "octfusion_tpu/ops/pallas/graph_conv_kernel.py"
 REPLACES = {"graph_conv_fwd": f"{_PALLAS}:41",
             "graph_conv_col": f"{_PALLAS}:80",
             "graph_conv_bwd_dx": f"{_PALLAS}:110",
-            "chamfer": "octfusion_tpu/ops/pallas/chamfer_kernel.py:30"}
+            "chamfer": "octfusion_tpu/ops/pallas/chamfer_kernel.py:30",
+            "graph_conv_fwd_packed": f"{_PALLAS}:297"}
 
 
 @dataclasses.dataclass
@@ -147,13 +184,19 @@ class KernelStats:
     ops_ms: float = 0.0
     bytes_ms: float = 0.0
     library_ms: Optional[float] = None
+    k1_ms: Optional[float] = None
 
-    def add(self, err, ms, plain_ms, cost, library_ms=None) -> float:
-        """Adds one shape, ``cost`` = (flops, bytes); returns its bound."""
+    def add(self, err, ms, plain_ms, cost, library_ms=None, flops_rate=None,
+            k1_ms=None) -> float:
+        """Adds one shape, ``cost`` = (flops, bytes) with the flops at
+        ``flops_rate`` (default: the fp32 peak); returns its bound."""
         from octfusion_tpu_torch.ops import roofline
 
-        ops, nbytes = roofline.times_ms(*cost)
+        ops, nbytes = roofline.times_ms(
+            *cost, flops_rate=flops_rate or roofline.FP32_FLOPS)
         bound = max(ops, nbytes)
+        if k1_ms is not None:
+            self.k1_ms = (self.k1_ms or 0.0) + k1_ms
         self.max_abs_err = max(self.max_abs_err, err)
         self.ms += ms
         self.plain_ms += plain_ms
@@ -170,11 +213,14 @@ class KernelStats:
             setattr(self, f, getattr(self, f) + getattr(other, f))
 
     def entry(self) -> dict:
-        return {"max_abs_err": self.max_abs_err, "ms": self.ms,
-                "plain_ms": self.plain_ms, "bound_ms": self.bound_ms,
-                "bound_by": ("operations" if self.ops_ms >= self.bytes_ms
-                             else "bytes"),
-                "library_ms": self.library_ms}
+        out = {"max_abs_err": self.max_abs_err, "ms": self.ms,
+               "plain_ms": self.plain_ms, "bound_ms": self.bound_ms,
+               "bound_by": ("operations" if self.ops_ms >= self.bytes_ms
+                            else "bytes"),
+               "library_ms": self.library_ms}
+        if self.k1_ms is not None:
+            out["k1_ms"] = self.k1_ms
+        return out
 
 
 def smi() -> str:
@@ -674,6 +720,236 @@ def check_evaluation(seed) -> int:
     return launches
 
 
+def check_packed_kernel(graph, shapes, gen) -> KernelStats:
+    """Phase 11: K5 vs its plain version and K1 at each (level, C, C'),
+    then K5 under autograd."""
+    from octfusion_tpu_torch.octree.dual_graph import with_packed_levels
+    from octfusion_tpu_torch.ops import graph_conv_cuda as k
+    from octfusion_tpu_torch.ops import graph_ops, roofline
+
+    dev = torch.device("cuda")
+    stats = KernelStats()
+    for d, c, cout in sorted(shapes):
+        lvl = graph.level(d)
+        csr = lvl.csr()
+        edges = (lvl.edge_row, lvl.edge_col, lvl.edge_dir, lvl.edge_scale)
+        x = torch.randn(lvl.g_cap, c, device=dev, generator=gen)
+        w = torch.randn(7 * c, cout, device=dev, generator=gen) / (7 * c) ** 0.5
+        got = k.graph_conv_packed(x, w, *csr)
+        ref = k.graph_conv_packed_plain(x, w, *edges)
+        torch.cuda.synchronize()
+        err = (got - ref).abs().max().item()
+        ref_max = ref.abs().max().item()
+        if not ref_max > 0:
+            raise AssertionError(f"all-zero reference at d={d} C={c}")
+        torch.testing.assert_close(got, ref, **TOL_KERNEL)
+        del got, ref
+        tk = cuda_ms(lambda: k.graph_conv_packed(x, w, *csr))
+        tp = cuda_ms(lambda: k.graph_conv_packed_plain(x, w, *edges))
+        t1 = cuda_ms(lambda: k.graph_conv(x, w, *csr))
+        e = int(lvl.n_edges)
+        bound = stats.add(err, tk, tp,
+                          roofline.graph_conv_fwd_cost(lvl.g_cap, c, cout, e),
+                          flops_rate=roofline.TF32_FLOPS, k1_ms=t1)
+        print(f"k5 d={d} G={lvl.g_cap} E={e} C={c} C'={cout}"
+              f" max_abs_err={err:.3e} max_rel_err={err / ref_max:.3e}"
+              f" tol=rtol {TOL_KERNEL['rtol']:g} atol {TOL_KERNEL['atol']:g}"
+              f" kernel_ms={tk:.4f} plain_ms={tp:.4f} k1_ms={t1:.4f}"
+              f" bound_ms={bound:.4f} share_of_bound={bound / tk:.3f}",
+              flush=True)
+
+    # forward only: a gradient through a packed level raises, unlaunched
+    packed = with_packed_levels(graph)
+    lvl = packed.level(graph.spec.full_depth)
+    x = torch.randn(lvl.g_cap, 8, device=dev, generator=gen)
+    w = torch.randn(7 * 8, 8, device=dev, generator=gen).requires_grad_()
+    n0 = k.launches["graph_conv_fwd_packed"]
+    for call in (lambda: graph_ops.graph_conv(x, w, lvl),
+                 lambda: k.graph_conv_packed(x, w, *lvl.csr())):
+        try:
+            call()
+        except RuntimeError as exc:
+            if "forward-only" not in str(exc):
+                raise
+        else:
+            raise AssertionError("K5 ran under autograd")
+    if k.launches["graph_conv_fwd_packed"] != n0:
+        raise AssertionError("K5 launched under autograd")
+    with torch.no_grad():
+        graph_ops.graph_conv(x, w, lvl)
+    print("k5 under autograd: raises (graph_ops.graph_conv on a packed "
+          "level and the wrapper); under no_grad it runs", flush=True)
+    return stats
+
+
+def assert_same_tensors(a, b, what: str) -> None:
+    """Every tensor of two (nested) dataclasses / sequences is equal."""
+    if isinstance(a, torch.Tensor):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{what} differs")
+    elif isinstance(a, (list, tuple)):
+        if len(a) != len(b):
+            raise AssertionError(f"{what}: {len(a)} vs {len(b)} entries")
+        for i, (x, y) in enumerate(zip(a, b)):
+            assert_same_tensors(x, y, f"{what}[{i}]")
+    elif dataclasses.is_dataclass(a):
+        for f in dataclasses.fields(a):
+            if f.init:
+                assert_same_tensors(getattr(a, f.name), getattr(b, f.name),
+                                    f"{what}.{f.name}")
+
+
+def dpmpp_solver(cfg, seed):
+    """Phases 12-13's model: ``cfg`` with the DPM-Solver++ sampler, seeded
+    weights perturbed with seeded noise."""
+    from octfusion_tpu_torch.models.union_solver import UnionSolver
+
+    cfg = dataclasses.replace(cfg, diffusion=dataclasses.replace(
+        cfg.diffusion, sampler="dpmpp"))
+    torch.manual_seed(seed)
+    solver = UnionSolver(cfg, device="cuda")
+    perturb_([solver.df, solver.vae], torch.Generator().manual_seed(seed + 4))
+    return solver
+
+
+def check_dpmpp(solver, seed):
+    """Phase 12: the dpmpp-25 cascade with K5 and with K1 on the same
+    weights and injected noise -> (K5 launches, K1 launches) of the two
+    counted runs."""
+    from octfusion_tpu_torch.nn.modules import GraphConv
+    from octfusion_tpu_torch.ops import graph_conv_cuda as k
+
+    dev = solver.device
+    m = solver.cfg.model
+    s = 2**m.full_depth
+    gen = torch.Generator(device=dev).manual_seed(seed + 5)
+    noise = {"lr_noise": torch.randn(1, 1, 8, s, s, s, device=dev,
+                                     generator=gen),
+             "hr_noise": torch.randn((1,) + solver.code_shape(1), device=dev,
+                                     generator=gen)}
+    packed_calls = [0]
+
+    def count_packed(mod, args, out):
+        packed_calls[0] += bool(args[1].packed)
+
+    hooks = [mod.register_forward_hook(count_packed)
+             for net in (solver.df, solver.vae) for mod in net.modules()
+             if isinstance(mod, GraphConv)]
+    runs = {}
+    for kpack in (True, False):
+        solver.sample(steps=2, resolution=RESOLUTION, kpack=kpack, **noise)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        k.reset_launches()
+        GraphConv.calls = 0
+        packed_calls[0] = 0
+        t0 = time.perf_counter()
+        out = solver.sample(steps=DPMPP_STEPS, resolution=RESOLUTION,
+                            kpack=kpack, **noise)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches, calls = dict(k.launches), GraphConv.calls
+        peak = torch.cuda.max_memory_allocated()
+        print(f"dpmpp cascade kpack={kpack}: steps={DPMPP_STEPS}+"
+              f"{DPMPP_STEPS} wall_s={wall:.3f} "
+              + " ".join(f"{n}_s={v:.3f}" for n, v in out["seconds"].items())
+              + f" peak_memory_bytes={peak} ({peak / 2**30:.2f} GiB) "
+              f"k1_launches={launches['graph_conv_fwd']} k5_launches="
+              f"{launches['graph_conv_fwd_packed']} graph_conv_calls={calls}"
+              f" on_packed_levels={packed_calls[0]} overflow="
+              f"{bool(out['overflow'])}", flush=True)
+        want_k5 = packed_calls[0] if kpack else 0
+        if not (launches["graph_conv_fwd_packed"] == want_k5
+                and launches["graph_conv_fwd"] == calls - want_k5
+                and calls > want_k5 and (want_k5 > 0 or not kpack)):
+            raise AssertionError(f"kpack={kpack}: launches {launches} vs "
+                                 f"{calls} GraphConv calls, {packed_calls[0]}"
+                                 " on packed levels")
+        if not (torch.isfinite(out["code"]).all()
+                and torch.isfinite(out["sdfs"]).all()):
+            raise AssertionError(f"kpack={kpack}: non-finite codes or SDF")
+        runs[kpack] = (out, launches)
+    for h in hooks:
+        h.remove()
+
+    (o5, l5), (o1, l1) = runs[True], runs[False]
+    assert_same_tensors(o5["graph"], o1["graph"], "graph")
+    err = (o5["code"] - o1["code"]).abs().max().item()
+    scale = o1["code"].abs().max().item()
+    print(f"dpmpp K5 vs K1: same octree and graph; codes max_abs_err="
+          f"{err:.3e} max_abs_code={scale:.3e} ratio={err / scale:.3e} "
+          f"tol {TOL_KPACK_CODE:g}", flush=True)
+    if not (scale > 0 and err <= TOL_KPACK_CODE * scale):
+        raise AssertionError(f"K5 vs K1 codes: {err:.3e} > "
+                             f"{TOL_KPACK_CODE:g} * {scale:.3e}")
+    return (l5["graph_conv_fwd_packed"],
+            l5["graph_conv_fwd"] + l1["graph_conv_fwd"])
+
+
+def check_cli(solver, cfg, seed):
+    """Phase 13: ``python -m octfusion_tpu_torch.generate`` from a
+    checkpoint of ``solver``'s weights, twice."""
+    from octfusion_tpu_torch.config import dump_config
+    from octfusion_tpu_torch.utils import ckpt, params
+
+    with tempfile.TemporaryDirectory() as root:
+        ckpt_path = ckpt.save(os.path.join(root, "ckpt"),
+                              params.union_checkpoint(solver.df), step=0)
+        vae_path = ckpt.save(
+            os.path.join(root, "vae"),
+            {"autoencoder": {n: v.cpu() for n, v in
+                             solver.vae.state_dict().items()}}, step=0)
+        cfg_path = os.path.join(root, "config.yaml")
+        dump_config(dataclasses.replace(cfg, solver=dataclasses.replace(
+            cfg.solver, resolution=CLI_RESOLUTION)), cfg_path)
+        cmd = [sys.executable, "-m", "octfusion_tpu_torch.generate",
+               "--config", cfg_path, "--logs_dir", root, "--name", "gen",
+               "--ckpt", ckpt_path, "--vq_ckpt", vae_path,
+               "--count", str(CLI_SHAPES), "--sampler", "dpmpp",
+               "--sample_steps", str(DPMPP_STEPS), "--seed", str(seed)]
+        env = dict(os.environ, OCTFUSION_CONV_KPACK="1")
+        rdir = os.path.join(root, "gen", "results_airplane")
+        outs = []
+        for attempt in (1, 2):
+            t0 = time.perf_counter()
+            res = subprocess.run(cmd, cwd=REPO, env=env, capture_output=True,
+                                 text=True, timeout=900)
+            wall = time.perf_counter() - t0
+            if res.returncode != 0:
+                raise AssertionError(f"generate run {attempt} failed "
+                                     f"({res.returncode}):\n"
+                                     f"{res.stderr[-3000:]}")
+            lines = res.stdout.splitlines()
+            outs.append(lines)
+            print(f"cli run {attempt}: wall_s={wall:.3f} "
+                  f"(resolution {CLI_RESOLUTION}, the one cut: random "
+                  "weights decode noise)", flush=True)
+            for line in lines:
+                print(f"  {line}", flush=True)
+        wrote = [ln for ln in outs[0] if ln.startswith("[*] wrote ")]
+        summary = [ln for ln in outs[0] if ln.startswith("[*] generated")]
+        if len(wrote) != CLI_SHAPES or not any(
+                ln.startswith("[*] loaded EMA") for ln in outs[0]):
+            raise AssertionError(f"generate: {len(wrote)} meshes written of "
+                                 f"{CLI_SHAPES}, or no checkpoint loaded")
+        if not summary or "graph_conv_fwd_packed_launches=" not in summary[0]:
+            raise AssertionError("generate ran no K5 launch")
+        sizes = []
+        for i in range(CLI_SHAPES):
+            with open(os.path.join(rdir, f"{i}.obj"), "rb") as fh:
+                data = fh.read()
+            if b"\nf " not in data:
+                raise AssertionError(f"{i}.obj has no face")
+            sizes.append(len(data))
+        if any(ln.startswith("[*] wrote ") for ln in outs[1]) or not any(
+                f"{CLI_SHAPES}/{CLI_SHAPES} meshes already present" in ln
+                for ln in outs[1]):
+            raise AssertionError("the second generate run did not skip "
+                                 "every mesh")
+    print(f"cli: {CLI_SHAPES} non-empty meshes, bytes {sizes}; the rerun "
+          "skipped all of them", flush=True)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=200,
@@ -706,7 +982,7 @@ def main(argv=None):
                                                      chamfer_cuda)]
         for fut in builds:
             fut.result()
-    print(f"build: graph_conv.cu (K1, K2, K3) and chamfer.cu (K4) "
+    print(f"build: graph_conv.cu (K1, K2, K3, K5) and chamfer.cu (K4) "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
 
     cfg = Config()
@@ -718,13 +994,19 @@ def main(argv=None):
     # ---- 3. kernel vs plain on a warm-up cascade's levels -------------
     shapes = set()
     hooks = conv_shape_hooks([solver.df, solver.vae], shapes)
-    warm = solver.sample(steps=2, resolution=RESOLUTION,
+    warm = solver.sample(steps=2, resolution=RESOLUTION, kpack=False,
                          generator=gen.manual_seed(args.seed + 1))
     for h in hooks:
         h.remove()
     g_warm = warm["decode_out"]["graph_out"]
     k1 = check_kernel(
         g_warm, shapes, torch.Generator(device=dev).manual_seed(args.seed))
+
+    # ---- 11. K5 vs plain and K1 on the sampling graph's levels 4-6 -----
+    k5 = check_packed_kernel(
+        warm["graph"], {sh for sh in shapes if sh[0] <= m.depth_stop}
+        | RAGGED_PACKED,
+        torch.Generator(device=dev).manual_seed(args.seed + 6))
 
     # ---- 4. one full-width hr denoise step, card vs CPU ---------------
     check_hr_step(solver, warm["graph"], args.seed)
@@ -735,7 +1017,7 @@ def main(argv=None):
     graph_conv_cuda.reset_launches()
     GraphConv.calls = 0
     t0 = time.perf_counter()
-    out = solver.sample(steps=args.steps, resolution=RESOLUTION,
+    out = solver.sample(steps=args.steps, resolution=RESOLUTION, kpack=False,
                         generator=gen.manual_seed(args.seed))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -789,19 +1071,27 @@ def main(argv=None):
 
     del out, dec, octree, grid, verts, faces, solver
 
+    # ---- 12-13. the DPM-Solver++ cascade with K5 and K1; the CLI -------
+    dsolver = dpmpp_solver(cfg, args.seed)
+    k5_launches, dpmpp_k1_launches = check_dpmpp(dsolver, args.seed)
+    check_cli(dsolver, cfg, args.seed)
+    del dsolver
+
     # ---- 6-8. training ------------------------------------------------
     measured, train_launches = check_training(args.seed)
     # K1's entry covers both phases: the worst error, the summed times
     k1.merge(measured["graph_conv_fwd"])
     measured["graph_conv_fwd"] = k1
     launches = {name: train_launches[name] for name in measured}
-    launches["graph_conv_fwd"] += cascade_launches
+    launches["graph_conv_fwd"] += cascade_launches + dpmpp_k1_launches
 
     # ---- 9. K4 vs plain; CD / EMD pairs/s ----------------------------
     measured["chamfer"] = check_chamfer(args.seed)
 
     # ---- 10. evaluation from meshes ----------------------------------
     launches["chamfer"] = check_evaluation(args.seed)
+    measured["graph_conv_fwd_packed"] = k5
+    launches["graph_conv_fwd_packed"] = k5_launches
 
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": SOURCES[name],

@@ -79,8 +79,7 @@ class DiffusionConfig:
     timesteps: int = 1000
     noise_schedule: str = "linear"
     ddim_steps: int = 200
-    # only 'ancestral' is ported so far; 'dpmpp' raises
-    sampler: str = "ancestral"
+    sampler: str = "ancestral"   # or "dpmpp": DPM-Solver++(2M)
     truncated_time: float = 0.7
     lr_pos_weight: float = 1.0
     ema_rate: float = 0.999

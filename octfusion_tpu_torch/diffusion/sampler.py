@@ -1,16 +1,19 @@
-"""Continuous-time ancestral sampler and denoising loss
-(port of ``sample_loop`` and ``diffusion_loss`` in
+"""Continuous-time samplers and the denoising loss
+(port of ``sample_loop``, ``_sample_loop_dpmpp`` and ``diffusion_loss`` in
 ``octfusion_tpu/diffusion/sampler.py``).
 
-The JAX ``lax.scan`` becomes a Python loop over one denoise callable; the
+Each JAX ``lax.scan`` becomes a Python loop over one denoise callable; the
 per-step schedule scalars are computed in float32 on the host, as the
 reference computes them in float32 on the device.  The lr stage snaps
 outputs to {-1, +1} once t drops below the truncation time and stops
-injecting noise past it.  ``solver="dpmpp"`` is not ported yet.
+injecting noise past it.  ``solver="dpmpp"`` runs DPM-Solver++(2M) on the
+same time grid: deterministic after its initial state, ~4x fewer denoiser
+calls than the 200-step ancestral loop at 25 steps.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Callable, Optional
 
 import torch
@@ -34,15 +37,21 @@ def sample_loop(
     *,
     device,
 ):
-    """Returns the final state after ``steps`` ancestral updates, on
-    ``device`` (the caller's; there is no default).
+    """Returns the final state after ``steps`` updates, on ``device`` (the
+    caller's; there is no default).
 
     ``noise_stream``: optional external noise replacing ``generator`` —
     entry 0 is the initial state, entries ``1..steps`` the per-step
     ancestral noise (the x0 path draws one per step; the eps and eta=0
-    paths use entry 0 only)."""
+    paths and ``solver="dpmpp"`` use entry 0 only)."""
+    if solver == "dpmpp":
+        return _sample_loop_dpmpp(
+            denoise_fn, shape, batch_size, steps, log_snr_fn,
+            df_type=df_type, truncated_index=truncated_index,
+            snap_sign=snap_sign, noise_stream=noise_stream,
+            generator=generator, device=device)
     if solver != "ancestral":
-        raise NotImplementedError(f"solver {solver!r} is not ported yet")
+        raise ValueError(f"unknown solver {solver!r}")
     f32 = dict(dtype=torch.float32, device=device)
     t_arr, t_next_arr = sampling_time_pairs(steps)
     step_noise = None
@@ -92,6 +101,66 @@ def sample_loop(
             x_start = x0
         else:
             raise ValueError(df_type)
+    return x
+
+
+def _sample_loop_dpmpp(
+    denoise_fn: Callable,
+    shape,
+    batch_size: int,
+    steps: int,
+    log_snr_fn,
+    df_type: str = "x0",
+    truncated_index: float = 0.0,
+    snap_sign: bool = False,
+    noise_stream=None,
+    generator: Optional[torch.Generator] = None,
+    *,
+    device,
+):
+    """DPM-Solver++(2M), data-prediction form, on the time grid of
+    ``sampling_time_pairs``.  With lambda = log_snr/2 and h = lambda_next -
+    lambda, each step is
+
+        x <- (sigma_next/sigma) x - alpha_next (e^{-h} - 1) D_hat
+        D_hat = (1 + 1/(2r)) D_t - (1/(2r)) D_prev,  r = h_prev / h
+
+    and the first step has no history (r = inf, so D_hat = D_t).  D_t is
+    the model's x0 prediction (``df_type="x0"``) or (x - sigma eps)/alpha
+    (``"eps"``), after the lr stage's sign snap below ``truncated_index``.
+    The initial state is ``noise_stream[0]`` or the generator's first draw,
+    as in the ancestral loop; nothing is drawn after it."""
+    f32 = dict(dtype=torch.float32, device=device)
+    if df_type not in ("x0", "eps"):
+        raise ValueError(df_type)
+    t_arr, t_next_arr = sampling_time_pairs(steps)
+    if noise_stream is not None:
+        x = torch.as_tensor(noise_stream[0], **f32)
+    else:
+        x = torch.randn(shape, generator=generator, **f32)
+    d_prev = torch.zeros(shape, **f32)
+    h_prev = None
+    for i in range(steps):
+        t, t_next = t_arr[i], t_next_arr[i]
+        snr = log_snr_fn(t)
+        snr_next = log_snr_fn(t_next)
+        alpha, sigma = log_snr_to_alpha_sigma(snr)
+        alpha_next, sigma_next = log_snr_to_alpha_sigma(snr_next)
+        tb = torch.full((batch_size,), snr.item(), **f32)
+        out = denoise_fn(x, tb, d_prev)
+        if snap_sign and bool(t < truncated_index):
+            out = torch.sign(out)
+        if df_type == "x0":
+            d = out
+        else:
+            d = (x - sigma.item() * out) / max(alpha.item(), 1e-8)
+        h = (snr_next - snr) * 0.5
+        r = h_prev / h if h_prev is not None else torch.tensor(math.inf)
+        w = 1.0 / (2.0 * r)
+        d_hat = (1.0 + w).item() * d - w.item() * d_prev
+        x = ((sigma_next / torch.clamp(sigma, min=1e-20)).item() * x
+             - (alpha_next * torch.expm1(-h)).item() * d_hat)
+        d_prev, h_prev = d, h
     return x
 
 

@@ -16,6 +16,7 @@ JAX package's jit caches and compile warm-up have no counterpart here.
 
 from __future__ import annotations
 
+import os
 import time
 from typing import Dict, Optional
 
@@ -27,11 +28,18 @@ from ..diffusion import sampler, schedule
 from ..nn.unet_union import UNetUnion, UnionConfig
 from ..nn.vae import GraphVAE
 from ..octree import split_codec
-from ..octree.dual_graph import GraphSpec, build_dual_graph
+from ..octree.dual_graph import (GraphSpec, build_dual_graph,
+                                 with_packed_levels)
 from ..utils import mesh as mesh_utils
 from ..utils import sdf as sdf_utils
 from ..utils.device import resolve_device
 from .common import batch_to_graph
+
+
+def use_kpack() -> bool:
+    """Packed forward convs (K5) on sampling graphs; off unless
+    ``OCTFUSION_CONV_KPACK=1``, as in the JAX package."""
+    return os.environ.get("OCTFUSION_CONV_KPACK", "0") == "1"
 
 
 class _Laps:
@@ -201,14 +209,17 @@ class UnionSolver:
         return torch.where(lvl.node_mask[:, None], code,
                            torch.zeros_like(code))
 
-    def _grow_fn(self, batch_size: int):
-        """split grid -> (octree, dual graph up to depth_stop)."""
+    def _grow_fn(self, batch_size: int, packed: bool = False):
+        """split grid -> (octree, dual graph up to depth_stop); with
+        ``packed`` every level of the graph is marked for K5."""
         spec = self.spec1.with_batch_size(batch_size)
 
         def grow(split):
             octree_small = split_codec.split2octree_small(split, spec)
             g_small = build_dual_graph(octree_small, self.edge_factor,
                                        up_to=self.small_depth)
+            if packed:
+                g_small = with_packed_levels(g_small)
             return octree_small, g_small
 
         return grow
@@ -217,24 +228,31 @@ class UnionSolver:
     def sample(self, batch_size: int = 1, label=None,
                steps: Optional[int] = None,
                resolution: Optional[int] = None, mesh: bool = False,
-               generator=None, lr_noise=None, hr_noise=None):
+               generator=None, lr_noise=None, hr_noise=None,
+               kpack: Optional[bool] = None, compute_sdf: bool = True):
         """Full generation cascade.  ``lr_noise`` / ``hr_noise`` inject the
         two stages' noise streams (see :meth:`sample_lr` /
-        :meth:`sample_hr`); otherwise ``generator`` draws it.  The result
-        holds the stage outputs, ``overflow`` (a device bool: a static cap
-        of the grown depth-``depth_stop`` graph truncated this shape; the
-        decoder's levels report through
+        :meth:`sample_hr`); otherwise ``generator`` draws it.  ``kpack``
+        (default :func:`use_kpack`) marks the grown depth-``depth_stop``
+        graph packed, so its convs (the hr U-Net's and the decoder's at
+        that depth) run K5; the decoder's grown levels keep K1.  The
+        result holds the stage outputs, ``overflow`` (a device bool: a
+        static cap of the grown depth-``depth_stop`` graph truncated this
+        shape; the decoder's levels report through
         ``decode_out["graph_out"].any_overflow()``) and ``seconds``, the
         wall time of each stage (the device is synchronised at stage
-        ends)."""
+        ends).  ``compute_sdf=False`` stops after the decode: no SDF grid
+        and no mesh."""
         m = self.cfg.model
+        if kpack is None:
+            kpack = use_kpack()
         self.df.eval()
         lap = _Laps(self.device)
         split_small = self.sample_lr(
             batch_size, label=label, steps=steps, noise_stream=lr_noise,
             generator=generator)
         lap("lr")
-        octree_small, g_small = self._grow_fn(batch_size)(split_small)
+        octree_small, g_small = self._grow_fn(batch_size, kpack)(split_small)
         lap("grow")
         out = {"split_small": split_small, "octree_small": octree_small,
                "seconds": lap.seconds}
@@ -247,6 +265,8 @@ class UnionSolver:
         lap("decode")
         out.update(code=code, decode_out=dec, graph=g_small,
                    overflow=g_small.any_overflow())
+        if not compute_sdf:
+            return out
         out["sdfs"] = sdf_utils.calc_sdf(
             dec["reg_voxs"][m.depth_out], dec["octree_out"],
             m.full_depth, m.depth_out,

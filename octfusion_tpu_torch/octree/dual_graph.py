@@ -12,7 +12,8 @@ reference's; the sorts are stable and use the reference's int32 sentinel.
 Beyond the reference, a :class:`GraphLevel` caches the CSR row pointer over
 its ``G * 7`` (row, dir) slots, which the CUDA graph convolution reads, and
 the transposed CSR over its (col, dir) slots, which the convolution's
-input-gradient kernel reads.
+input-gradient kernel reads.  :func:`with_packed_levels` marks levels
+whose forward convs take the packed kernel K5 (sampling graphs).
 """
 
 from __future__ import annotations
@@ -119,6 +120,8 @@ class GraphLevel:
     node_slot: torch.Tensor   # [G] slot in that depth's octree arrays
     n_nodes: torch.Tensor
     overflow: torch.Tensor    # bool: edge capacity exceeded
+    # forward convs take K5 (forward-only; see with_packed_levels)
+    packed: bool = False
     # CSR of the sorted edges, built on first use (see :meth:`csr`)
     _csr: Optional[tuple] = dataclasses.field(
         default=None, init=False, repr=False, compare=False)
@@ -515,6 +518,20 @@ def build_dual_graph(
         leaf_pos=tuple(leaf_maps[dd][1] for dd in range(fd, last + 1)),
         lnum=lnum,
     )
+
+
+def with_packed_levels(g: DualGraph, depths=None) -> DualGraph:
+    """Mark the given ``depths`` (default: every built level) so that
+    ``graph_ops.graph_conv`` runs their convs through the packed forward
+    kernel K5: the counterpart of the JAX ``with_conv_plans(g,
+    packed=True)``, for sampling graphs only (K5 has no backward).  K5
+    reads the level's CSR and has no descriptor budget, so it adds no
+    overflow flag: where the JAX ``any_overflow`` also ORs
+    ``conv_plan.overflow``, the port's has no such term."""
+    return g.replace(levels=tuple(
+        dataclasses.replace(lvl, packed=True)
+        if depths is None or lvl.d in depths else lvl
+        for lvl in g.levels))
 
 
 def extend_dual_graph(g: DualGraph, octree: Octree) -> DualGraph:

@@ -6,8 +6,8 @@ The forward computes ``out = col(x) @ W`` with
     out = col @ W            x [G, C], W [7C, C'], out [G, C']
 
 and ``scale_e = 1/|edges of (r, d)|``, i.e. a scatter-mean over
-neighbours followed by the trailing GEMM.  Three hand-written CUDA kernels
-(``csrc/graph_conv.cu``) replace the three Pallas kernels of
+neighbours followed by the trailing GEMM.  Four hand-written CUDA kernels
+(``csrc/graph_conv.cu``) replace the four Pallas kernels of
 ``octfusion_tpu/ops/pallas/graph_conv_kernel.py``:
 
 * K1 ``graph_conv_fwd`` (replaces ``_fwd_kernel``): the forward, without
@@ -18,7 +18,16 @@ neighbours followed by the trailing GEMM.  Three hand-written CUDA kernels
   ``dx = sum_d A_d^T (dout W_d^T)``, which it evaluates as
   ``sum_d (A_d^T dout) W_d^T`` over the transposed CSR
   (``GraphLevel.csr_t``), forming the product with ``W_d^T`` in its own
-  body as the TPU kernel does.
+  body as the TPU kernel does;
+* K5 ``graph_conv_fwd_packed`` (replaces ``_fwd_kernel_packed``): K1's
+  function on the tensor cores, forward only, for the levels that
+  ``dual_graph.with_packed_levels`` marks (sampling graphs).  The TPU
+  kernel merges 4 gathered blocks into one matrix-unit issue; K5 cuts the
+  flat 7C axis of the column buffer into packs of 128 columns, gathers
+  each pack from the CSR into shared memory and multiplies it by W's
+  matching rows in TF32 WMMA fragments with the 3xTF32 split (fp32
+  accuracy).  Like the JAX ``graph_conv_packed`` it has no backward: where
+  autograd would need one it raises (:func:`packed_forward`).
 
 :class:`GraphConvFunction` ties them together as the JAX package's
 ``custom_vjp`` does (``graph_conv_kernel.py:259-287``); ``dW``'s product
@@ -38,7 +47,8 @@ channels, so each neighbour read is one coalesced 128-byte line) and using
 it for 64 output columns; and the second by a 4 x 4 register micro-tile
 per thread over K-chunks of 32.  K2 is bound by its bytes: it reads
 E x C and writes G x 7C floats, a warp per (row, dir) slot with lanes on
-channels.  Tensor cores (wgmma), TMA and bf16 are later work.
+channels.  K5 is the one on the tensor cores (WMMA, no pipelining);
+wgmma, TMA and bf16 are later work.
 
 Beside each kernel sits its plain PyTorch version (gather, scale,
 ``index_add_``; for K1 and K3 a GEMM).  The wrappers take the plain
@@ -66,6 +76,7 @@ _SIGNATURES = {
     "graph_conv_fwd": [_P] * 6 + [_I] * 3 + [_P],
     "graph_conv_col": [_P] * 5 + [_I] * 2 + [_P],
     "graph_conv_bwd_dx": [_P] * 6 + [_I] * 3 + [_P],
+    "graph_conv_fwd_packed": [_P] * 6 + [_I] * 3 + [_P],
 }
 # kernel launches since the last reset_launches(), per kernel; each is
 # counted where its kernel is launched and nowhere else
@@ -92,7 +103,7 @@ def _load():
 
 
 def _check_inputs(name, feats, csr, g):
-    """Checks shared by the three wrappers: CUDA float32 ``feats``, and a
+    """Checks shared by the wrappers: CUDA float32 ``feats``, and a
     CSR over g*7 slots."""
     if not feats[0][1].is_cuda:
         raise ValueError(f"graph_conv_cuda.{name} needs CUDA tensors; use "
@@ -117,23 +128,45 @@ def _launch(name: str, dev, *args) -> None:
     launches[name] += 1
 
 
-def graph_conv(x: torch.Tensor, w: torch.Tensor, row_ptr: torch.Tensor,
-               col: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
-    """K1: x [G, C] f32, w [7C, C'] f32, CSR ``row_ptr`` [G*7+1] int32,
-    ``col`` [E] int32, ``scale`` [E] f32, all contiguous on one CUDA
-    device.  Returns ``col(x) @ w``, [G, C'] f32."""
+def _forward(name, entry, x, w, row_ptr, col, scale) -> torch.Tensor:
+    """K1 or K5 (``entry``): checks, output, launch."""
     g, c = x.shape
-    dev = _check_inputs("graph_conv", [("x", x), ("w", w)],
-                        (row_ptr, col, scale), g)
+    dev = _check_inputs(name, [("x", x), ("w", w)], (row_ptr, col, scale), g)
     cout = w.shape[1]
     if w.shape[0] != N_EDGE_TYPE * c:
         raise ValueError(f"w has {w.shape[0]} rows, expected 7*C = {7 * c}")
     out = torch.empty((g, cout), dtype=torch.float32, device=dev)
     if g and cout:
-        _launch("graph_conv_fwd", dev, x.data_ptr(), w.data_ptr(),
-                row_ptr.data_ptr(), col.data_ptr(), scale.data_ptr(),
-                out.data_ptr(), g, c, cout)
+        _launch(entry, dev, x.data_ptr(), w.data_ptr(), row_ptr.data_ptr(),
+                col.data_ptr(), scale.data_ptr(), out.data_ptr(), g, c, cout)
     return out
+
+
+def graph_conv(x: torch.Tensor, w: torch.Tensor, row_ptr: torch.Tensor,
+               col: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """K1: x [G, C] f32, w [7C, C'] f32, CSR ``row_ptr`` [G*7+1] int32,
+    ``col`` [E] int32, ``scale`` [E] f32, all contiguous on one CUDA
+    device.  Returns ``col(x) @ w``, [G, C'] f32."""
+    return _forward("graph_conv", "graph_conv_fwd", x, w, row_ptr, col, scale)
+
+
+def _forward_only(x: torch.Tensor, w: torch.Tensor) -> None:
+    """K5 has no backward, as the JAX ``graph_conv_packed`` has none."""
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        raise RuntimeError(
+            "the packed graph conv (K5) is forward-only: a packed level "
+            "cannot be differentiated; run it under torch.no_grad() or use "
+            "a level without the packed mark")
+
+
+def graph_conv_packed(x: torch.Tensor, w: torch.Tensor,
+                      row_ptr: torch.Tensor, col: torch.Tensor,
+                      scale: torch.Tensor) -> torch.Tensor:
+    """K5: K1's function and arguments on the tensor cores (3xTF32).
+    Forward only: raises where autograd would need a gradient."""
+    _forward_only(x, w)
+    return _forward("graph_conv_packed", "graph_conv_fwd_packed", x, w,
+                    row_ptr, col, scale)
 
 
 def graph_conv_col(x: torch.Tensor, row_ptr: torch.Tensor, col: torch.Tensor,
@@ -192,6 +225,23 @@ def graph_conv_plain(x: torch.Tensor, w: torch.Tensor, edge_row, edge_col,
     """K1's plain version: the column buffer, then one GEMM."""
     return graph_conv_col_plain(x, edge_row, edge_col, edge_dir,
                                 edge_scale) @ w
+
+
+def graph_conv_packed_plain(x: torch.Tensor, w: torch.Tensor, edge_row,
+                            edge_col, edge_dir, edge_scale) -> torch.Tensor:
+    """K5's plain version: K1's, since the function is the same."""
+    return graph_conv_plain(x, w, edge_row, edge_col, edge_dir, edge_scale)
+
+
+def packed_forward(x: torch.Tensor, w: torch.Tensor, lvl) -> torch.Tensor:
+    """``col(x) @ w`` on a packed :class:`GraphLevel`: K5 on a CUDA tensor,
+    its plain version on a CPU one.  Raises where autograd would need a
+    gradient: it never falls back to :class:`GraphConvFunction`."""
+    if x.is_cuda:
+        return graph_conv_packed(x.contiguous(), w.contiguous(), *lvl.csr())
+    _forward_only(x, w)
+    return graph_conv_packed_plain(x, w, lvl.edge_row, lvl.edge_col,
+                                   lvl.edge_dir, lvl.edge_scale)
 
 
 def graph_conv_bwd_dx_plain(dout: torch.Tensor, w: torch.Tensor, edge_row,

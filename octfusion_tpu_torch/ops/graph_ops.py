@@ -4,7 +4,8 @@
 * ``graph_conv`` — scatter-mean over the 7 (row, dir) slots, then one GEMM,
   differentiable: a CUDA tensor goes through the hand-written kernels
   (``ops/graph_conv_cuda.py``; K1 forward, K2 and K3 backward), a CPU
-  tensor through their plain versions;
+  tensor through their plain versions; a packed level
+  (``dual_graph.with_packed_levels``) takes the forward-only K5 instead;
 * ``dual_group_norm`` — per-sample statistics over valid vertices with the
   reference's ``1/(count + eps)`` and ``var = E[x²] - mean²`` conventions;
 * ``downsample_splice`` / ``upsample_splice`` — the leaf-preserving level
@@ -30,11 +31,14 @@ def graph_conv(
     """x: [G, C]; w: [7*(C+node_ch), C_out].  Returns [G, C_out]; vertices
     without edges produce zero rows.  The node-type one-hot columns are
     concatenated before the autograd function, so autograd slices their
-    gradient away."""
+    gradient away.  A packed level runs the forward-only K5 (or its plain
+    version on the CPU) and raises where a gradient would be needed."""
     if n_node_type > 1:
         onehot = F.one_hot(lvl.node_type, n_node_type).to(x.dtype)
         onehot = onehot * lvl.node_mask[:, None].to(x.dtype)
         x = torch.cat([x, onehot], dim=-1)
+    if lvl.packed:
+        return graph_conv_cuda.packed_forward(x, w, lvl)
     return graph_conv_cuda.GraphConvFunction.apply(x, w, lvl)
 
 

@@ -5,7 +5,9 @@ CUDA card.
 Without options: one lr and one hr denoise step at batch 1 (default
 configuration, caps from finest_cap 131072).  A two-step cascade grows
 the depth-``depth_stop`` graph the hr step runs on; then each stage's
-denoise call is warmed up and run ``--steps`` times.  With ``--train``:
+denoise call is warmed up and run ``--steps`` times.  ``hr_kpack`` is the
+same hr step with the graph's levels packed, so its graph convs run the
+packed kernel K5 instead of K1.  With ``--train``:
 the hr-stage train step (``UnionSolver.make_train_step``; batch 4 of
 65536-point lumpy spheres, ``configs/octfusion_snet_uncond.yaml``), with
 fixed encoder eps, times and noise.
@@ -34,6 +36,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from .config import Config, load_config
 from .models.union_solver import UnionSolver
+from .octree.dual_graph import with_packed_levels
 from .utils.shapes import lumpy_spheres
 
 TOP = 8     # kernels listed per stage
@@ -95,9 +98,12 @@ def _denoise_steps(dev, steps):
     s = 2**m.full_depth
     x_lr = torch.randn(1, s, s, s, 8, device=dev, generator=gen)
     x_lr_self = torch.zeros_like(x_lr)
+    g_packed = with_packed_levels(g)
     with torch.no_grad():
         return {
             "hr": profile_stage(lambda: solver.df("hr", x_hr, t, g=g), steps),
+            "hr_kpack": profile_stage(
+                lambda: solver.df("hr", x_hr, t, g=g_packed), steps),
             "lr": profile_stage(
                 lambda: solver.df("lr", x_lr, t, x_self_cond=x_lr_self),
                 steps),

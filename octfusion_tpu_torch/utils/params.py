@@ -1,5 +1,8 @@
 """Parameter bridge: the JAX package's flax parameter trees -> this
-port's ``state_dict``s.
+port's ``state_dict``s; and the reference's own checkpoints, which load
+into the port as they stand (:func:`load_union_checkpoint`,
+:func:`load_vae_checkpoint`), since the port's modules use the
+reference's state-dict keys.
 
 It inverts ``octfusion_tpu/utils/torch_convert.py`` (which maps the
 reference PyTorch checkpoints to flax): Linear kernels transpose back,
@@ -17,6 +20,8 @@ from typing import Dict
 
 import numpy as np
 import torch
+
+from . import ckpt as ckpt_lib
 
 
 class _Bridge:
@@ -252,3 +257,50 @@ def union_state_dict(params: Dict, union_cfg) -> Dict[str, torch.Tensor]:
                 union_cfg.num_res_blocks[i])
         sd.update({f"unet_{kind}.{k}": v for k, v in part.items()})
     return sd
+
+
+# ----------------------------------------------------------------------
+# the reference's checkpoint layout (octfusion_model_union.py:501-523)
+# ----------------------------------------------------------------------
+def union_checkpoint(df: torch.nn.Module) -> Dict:
+    """A ``UNetUnion``'s weights in the reference's checkpoint layout:
+    ``df_unet_<kind>`` and ``ema_df_unet_<kind>`` (the same weights) state
+    dicts on the host under the reference keys, for each U-Net ``df``
+    holds."""
+    tree = {}
+    for kind in ("lr", "hr"):
+        net = getattr(df, f"unet_{kind}", None)
+        if net is not None:
+            sd = {k: v.detach().cpu() for k, v in net.state_dict().items()}
+            tree[f"df_unet_{kind}"] = sd
+            tree[f"ema_df_unet_{kind}"] = sd
+    return tree
+
+
+def load_union_checkpoint(df: torch.nn.Module, tree: Dict,
+                          ema: bool = True) -> None:
+    """Load a reference-layout diffusion checkpoint (``tree``, as
+    ``utils/ckpt.restore`` returns it) into ``df``: the ``ema_df_unet_*``
+    entries, or ``df_unet_*`` with ``ema=False``.  Strict: a U-Net of
+    ``df`` without an entry, an entry without a U-Net, or a missing or
+    unexpected key raises."""
+    prefix = "ema_df_" if ema else "df_"
+    sd = {}
+    for kind in ("lr", "hr"):
+        entry = tree.get(f"{prefix}unet_{kind}")
+        has = getattr(df, f"unet_{kind}", None) is not None
+        if entry is None and has:
+            raise KeyError(f"checkpoint has no {prefix}unet_{kind}")
+        if entry is not None and not has:
+            raise KeyError(f"checkpoint has {prefix}unet_{kind} but the "
+                           f"model has no unet_{kind}")
+        if entry is not None:
+            sd.update({f"unet_{kind}.{k}": v for k, v in entry.items()})
+    df.load_state_dict(sd, strict=True)
+
+
+def load_vae_checkpoint(vae: torch.nn.Module, path: str) -> None:
+    """Load a VAE ``.pth`` into ``vae``: the reference's checkpoint (its
+    ``autoencoder`` entry) or a bare state dict.  Strict."""
+    raw = ckpt_lib.restore(path)
+    vae.load_state_dict(raw.get("autoencoder", raw), strict=True)

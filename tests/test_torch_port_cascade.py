@@ -20,26 +20,15 @@ import sys
 
 import numpy as np
 import pytest
-import jax
-import jax.numpy as jnp
 import torch
 
-from octfusion_tpu.data.dataset import SyntheticDataset, collate
-from octfusion_tpu.models.union_solver import UnionSolver as JSolver
-from octfusion_tpu.nn.vae import GraphVAE as JGraphVAE
-from octfusion_tpu.ops import mpu as jmpu
-from octfusion_tpu_torch.models.union_solver import UnionSolver as TSolver
-from octfusion_tpu_torch.utils import params as bridge
-
 from test_torch_port_helpers import (TINY, assert_graph_equal,
-                                     assert_octree_equal, jcfg, make_graph,
-                                     np_, perturb, port_octree, tcfg,
-                                     tiny_config)
+                                     assert_octree_equal, jax_cascade, np_,
+                                     port_octree, union_solvers)
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 STEPS = 6
 RES = 24
-LR_OUT_GAIN = 10.0
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
@@ -47,44 +36,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 def run():
     """Both solvers with the same weights, the JAX cascade stage by stage,
     and the injected noise."""
-    cj, ct = tiny_config(jcfg), tiny_config(tcfg)
-    sj = JSolver(cj)
-    ds = SyntheticDataset(size=1, point_sample_num=256, points_per_shape=2048)
-    batch = {k: jnp.asarray(v) for k, v in collate([ds[0]]).items()
-             if k != "filename"}
-    rng = np.random.RandomState(0)
-    params = perturb(jax.device_get(
-        sj.init_params(jax.random.PRNGKey(0), batch)), rng)
-    # widen the lr outputs so that few sit near the sign-snap tie
-    out = params["params"]["unet_lr"]["out"]["conv"]
-    out["kernel"] = out["kernel"] * LR_OUT_GAIN
-    g_in = make_graph(seed=1, depth=4, full_depth=2, n=400)
-    vae_params = perturb(jax.device_get(jax.jit(sj.vae.init)(
-        jax.random.PRNGKey(1), g_in, None, jax.random.PRNGKey(2))), rng)
-
-    st = TSolver(ct, device="cpu")
-    st.df.load_state_dict(bridge.union_state_dict(params, st.union_cfg),
-                          strict=True)
-    st.vae.load_state_dict(
-        bridge.vae_state_dict(vae_params, 4, 3, 4, 1), strict=True)
-
-    lr_noise = rng.normal(size=(STEPS + 1, 1, 8, 4, 4, 4)).astype(np.float32)
-    g_cap = ct.capacity.octree_spec(4, 2).node_caps[2:4]
-    hr_noise = rng.normal(size=(1, sum(g_cap), 2)).astype(np.float32)
-
-    key = jax.random.PRNGKey(3)
-    split = jax.jit(sj.sample_lr, static_argnames=("batch_size", "steps"))(
-        params, key, batch_size=1, steps=STEPS, noise_stream=lr_noise)
-    octree, g = jax.jit(sj._grow_fn(1))(split)
-    code = jax.jit(sj.sample_hr, static_argnames=("batch_size", "steps"))(
-        params, key, g, batch_size=1, steps=STEPS, noise_stream=hr_noise)
-    dec = jax.jit(lambda p, c, g: sj.vae.apply(
-        p, c, g, method=JGraphVAE.decode_grow))(vae_params, code, g)
-    sdf = jax.jit(lambda r, o: jmpu.mpu_grid_eval(
-        r, o, 2, 4, RES, -0.9, 0.9))(dec["reg_voxs"][4], dec["octree_out"])
-    jax_out = dict(split=split, octree=octree, g=g, code=code, dec=dec,
-                   sdf=sdf)
-    return st, jax_out, lr_noise, hr_noise
+    sj, st, params, vae_params, rng = union_solvers()
+    return (st,) + jax_cascade(sj, params, vae_params, rng, STEPS, RES)
 
 
 def test_cascade_stage_by_stage(run):
@@ -149,8 +102,9 @@ def test_cascade_end_to_end(run):
 
 
 def test_port_imports_no_jax():
-    """The port alone: a tiny cascade, two hr train steps and a tiny
-    evaluation (CD and EMD metrics)."""
+    """The port alone: a tiny cascade, two hr train steps, a tiny
+    evaluation (CD and EMD metrics) and the generate CLI (DPM-Solver++,
+    packed levels) from a checkpoint of the cascade's weights."""
     code = (
         "import sys, torch\n"
         "from octfusion_tpu_torch import config as C\n"
@@ -182,6 +136,17 @@ def test_port_imports_no_jax():
         "res = evaluation.evaluate_point_sets(pts[0], pts[1], batch=4,\n"
         "                                     device='cpu')\n"
         "assert all(np.isfinite(v) for v in res.values()), res\n"
+        "import os, tempfile\n"
+        "from octfusion_tpu_torch import generate\n"
+        "from octfusion_tpu_torch.utils import ckpt, params\n"
+        "os.environ['OCTFUSION_CONV_KPACK'] = '1'\n"
+        "with tempfile.TemporaryDirectory() as d:\n"
+        "    ckpt.save(os.path.join(d, 'run', 'ckpt'),\n"
+        "              params.union_checkpoint(solver.df), step=1)\n"
+        "    generate.main(['--config', 'configs/synthetic_tiny.yaml',\n"
+        "        '--logs_dir', d, '--name', 'run', '--count', '1',\n"
+        "        '--sampler', 'dpmpp', '--sample_steps', '2',\n"
+        "        '--device', 'cpu'])\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
         "       ('jax', 'jaxlib', 'flax', 'optax', 'octfusion_tpu')]\n"
         "assert not bad, bad\n"

@@ -1,7 +1,8 @@
 """Card-only tests of the port's CUDA kernels against their plain PyTorch
-versions: the graph conv's K1 forward, K2 column buffer and K3 input
-gradient, the differentiable graph conv on the card, and the Chamfer
-kernel K4 with the evaluation's tile loop.  They skip without a GPU; on
+versions: the graph conv's K1 forward, K2 column buffer, K3 input
+gradient and K5 packed forward (with its autograd guard), the
+differentiable graph conv on the card, and the Chamfer kernel K4 with the
+evaluation's tile loop.  They skip without a GPU; on
 one, run them with
 
     python -m pytest tests/test_torch_port_cuda.py --noconftest -m cuda -q
@@ -13,7 +14,8 @@ import numpy as np
 import pytest
 import torch
 
-from octfusion_tpu_torch.octree.dual_graph import build_dual_graph
+from octfusion_tpu_torch.octree.dual_graph import (build_dual_graph,
+                                                   with_packed_levels)
 from octfusion_tpu_torch.octree.octree import OctreeSpec
 from octfusion_tpu_torch.octree.split_codec import split2octree_small
 from octfusion_tpu_torch.metrics import distances
@@ -149,6 +151,61 @@ def test_kernel_rejects_bad_inputs(cuda):
         graph_conv_cuda.graph_conv(x, w[:55], row_ptr, col, scale)
     with pytest.raises(ValueError):
         graph_conv_cuda.graph_conv(x.t(), w, row_ptr, col, scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,cout", [(6, 128), (131, 128), (259, 256),
+                                    (515, 512), (38, 32), (128, 3)])
+def test_packed_kernel_matches_plain_and_k1(cuda, c, cout):
+    """K5 (3xTF32 tensor cores) against its plain version and K1 at levels
+    4-6; ragged C (131, 259, 515) cross the 128-column packs."""
+    g = _graph(cuda, seed=7)
+    gen = torch.Generator(device=cuda).manual_seed(c + 1)
+    for d in (4, 5, 6):
+        lvl = g.level(d)
+        x = torch.randn(lvl.g_cap, c, device=cuda, generator=gen)
+        w = torch.randn(7 * c, cout, device=cuda, generator=gen) / (7 * c) ** 0.5
+        csr = lvl.csr()
+        n0 = dict(graph_conv_cuda.launches)
+        got = graph_conv_cuda.graph_conv_packed(x, w, *csr)
+        assert graph_conv_cuda.launches["graph_conv_fwd_packed"] == \
+            n0["graph_conv_fwd_packed"] + 1
+        assert graph_conv_cuda.launches["graph_conv_fwd"] == \
+            n0["graph_conv_fwd"]
+        ref = graph_conv_cuda.graph_conv_packed_plain(
+            x, w, lvl.edge_row, lvl.edge_col, lvl.edge_dir, lvl.edge_scale)
+        k1 = graph_conv_cuda.graph_conv(x, w, *csr)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, ref, rtol=TOL, atol=TOL)
+        torch.testing.assert_close(got, k1, rtol=TOL, atol=TOL)
+
+
+@pytest.mark.cuda
+def test_packed_level_dispatch_and_autograd_guard(cuda):
+    """On a packed level graph_ops.graph_conv launches K5 (not K1) and
+    equals the CPU plain path; under autograd it raises, launching
+    nothing."""
+    g = with_packed_levels(_graph(cuda, seed=8))
+    lvl = g.level(6)
+    rng = np.random.RandomState(9)
+    x = torch.tensor(rng.normal(size=(lvl.g_cap, 16)).astype(np.float32))
+    w = torch.tensor((rng.normal(size=(7 * (16 + 3), 24)) * 0.1).astype(
+        np.float32))
+    n0 = dict(graph_conv_cuda.launches)
+    with torch.no_grad():
+        got = graph_ops.graph_conv(x.to(cuda), w.to(cuda), lvl, 3)
+    assert graph_conv_cuda.launches["graph_conv_fwd_packed"] == \
+        n0["graph_conv_fwd_packed"] + 1
+    assert graph_conv_cuda.launches["graph_conv_fwd"] == n0["graph_conv_fwd"]
+    ref = graph_ops.graph_conv(x, w, lvl.to("cpu"), 3)
+    torch.testing.assert_close(got.cpu(), ref, rtol=TOL, atol=TOL)
+    wg = w.to(cuda).requires_grad_()
+    with pytest.raises(RuntimeError, match="forward-only"):
+        graph_ops.graph_conv(x.to(cuda), wg, lvl, 3)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        graph_conv_cuda.graph_conv_packed(x.to(cuda), wg, *lvl.csr())
+    assert graph_conv_cuda.launches["graph_conv_fwd_packed"] == \
+        n0["graph_conv_fwd_packed"] + 1
 
 
 # K4: fp32 clouds in the unit cube, direct form against the plain

@@ -146,3 +146,74 @@ def jspec_of(tspec):
     from octfusion_tpu.octree.octree import OctreeSpec
     return OctreeSpec(**dataclasses.asdict(tspec))
 
+
+
+# widen the lr outputs so that few sit near the sign-snap tie
+LR_OUT_GAIN = 10.0
+
+
+def union_solvers(sampler: str = "ancestral"):
+    """The JAX and port solvers of the tiny configuration with
+    ``diffusion.sampler`` = ``sampler`` and the same weights: JAX-initialised
+    U-Nets and VAE, perturbed with seeded noise so zero-initialised layers
+    carry signal, carried over by the parameter bridge -> (JAX solver, port
+    solver, U-Net params, VAE params, the numpy generator after the
+    perturbations)."""
+    import jax
+
+    from octfusion_tpu.data.dataset import SyntheticDataset, collate
+    from octfusion_tpu.models.union_solver import UnionSolver as JSolver
+    from octfusion_tpu_torch.models.union_solver import UnionSolver as TSolver
+    from octfusion_tpu_torch.utils import params as bridge
+
+    cj, ct = tiny_config(jcfg), tiny_config(tcfg)
+    cj = dataclasses.replace(cj, diffusion=dataclasses.replace(
+        cj.diffusion, sampler=sampler))
+    ct = dataclasses.replace(ct, diffusion=dataclasses.replace(
+        ct.diffusion, sampler=sampler))
+    sj = JSolver(cj)
+    ds = SyntheticDataset(size=1, point_sample_num=256, points_per_shape=2048)
+    batch = {k: jnp.asarray(v) for k, v in collate([ds[0]]).items()
+             if k != "filename"}
+    rng = np.random.RandomState(0)
+    params = perturb(jax.device_get(
+        sj.init_params(jax.random.PRNGKey(0), batch)), rng)
+    out = params["params"]["unet_lr"]["out"]["conv"]
+    out["kernel"] = out["kernel"] * LR_OUT_GAIN
+    g_in = make_graph(seed=1, depth=4, full_depth=2, n=400)
+    vae_params = perturb(jax.device_get(jax.jit(sj.vae.init)(
+        jax.random.PRNGKey(1), g_in, None, jax.random.PRNGKey(2))), rng)
+
+    st = TSolver(ct, device="cpu")
+    st.df.load_state_dict(bridge.union_state_dict(params, st.union_cfg),
+                          strict=True)
+    st.vae.load_state_dict(
+        bridge.vae_state_dict(vae_params, 4, 3, 4, 1), strict=True)
+    return sj, st, params, vae_params, rng
+
+
+def jax_cascade(sj, params, vae_params, rng, steps, res):
+    """The JAX cascade of the tiny configuration stage by stage, each stage
+    jitted, with lr and hr noise drawn from ``rng`` -> (the stage outputs,
+    lr noise, hr noise)."""
+    import jax
+
+    from octfusion_tpu.nn.vae import GraphVAE as JGraphVAE
+    from octfusion_tpu.ops import mpu as jmpu
+
+    lr_noise = rng.normal(size=(steps + 1, 1, 8, 4, 4, 4)).astype(np.float32)
+    g_cap = sj.cfg.capacity.octree_spec(4, 2).node_caps[2:4]
+    hr_noise = rng.normal(size=(1, sum(g_cap), 2)).astype(np.float32)
+
+    key = jax.random.PRNGKey(3)
+    split = jax.jit(sj.sample_lr, static_argnames=("batch_size", "steps"))(
+        params, key, batch_size=1, steps=steps, noise_stream=lr_noise)
+    octree, g = jax.jit(sj._grow_fn(1))(split)
+    code = jax.jit(sj.sample_hr, static_argnames=("batch_size", "steps"))(
+        params, key, g, batch_size=1, steps=steps, noise_stream=hr_noise)
+    dec = jax.jit(lambda p, c, g: sj.vae.apply(
+        p, c, g, method=JGraphVAE.decode_grow))(vae_params, code, g)
+    sdf = jax.jit(lambda r, o: jmpu.mpu_grid_eval(
+        r, o, 2, 4, res, -0.9, 0.9))(dec["reg_voxs"][4], dec["octree_out"])
+    return (dict(split=split, octree=octree, g=g, code=code, dec=dec,
+                 sdf=sdf), lr_noise, hr_noise)
