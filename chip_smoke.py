@@ -13,7 +13,10 @@ input gradient and K5 packed forward; the Chamfer kernel K4):
 3. K1 vs plain: on the graph levels 4-8 of a short warm-up cascade, at
    every (C, C') pair the cascade's graph convs use, the kernel against its
    plain PyTorch version on the same tensors (rtol = atol = 1e-4), timed
-   with CUDA events beside its bound (``ops/roofline.py``);
+   with CUDA events beside the GEMM alone on the materialised column
+   buffer (``gemm_ms``: ``col @ W``, a yardstick the port never calls) and
+   its bound (``ops/roofline.py``: at the TF32 tensor-core rate, and at
+   the fp32 rate beside it), then the sums over the shapes;
 4. one full-width hr denoise step on the card (kernel) against the CPU
    (plain path), same weights and inputs (rtol = atol = 1e-3);
 5. the generation cascade (``UnionSolver.sample``: lr sampling, grow, hr
@@ -30,7 +33,9 @@ input gradient and K5 packed forward; the Chamfer kernel K4):
    the frozen encoder's levels 6-8 and the hr U-Net's levels 4-6; K2 and
    K3: the differentiable convs of levels 4-6), each kernel against its
    plain version on the same tensors (rtol = atol = 1e-4), timed with CUDA
-   events;
+   events, K1 and K3 beside the GEMM alone (K3: ``dout @ W^T``, as in its
+   plain version), then the sums; the training graph's line gives each
+   level's largest CSR and transposed-CSR slot;
 7. one full-width hr train step (``UnionSolver.loss_fn`` and its backward)
    on the card against the CPU, batch 1, all weights perturbed with seeded
    noise (the zero-initialised convs would otherwise give trivially zero
@@ -93,10 +98,12 @@ input gradient and K5 packed forward; the Chamfer kernel K4):
 Prints the kernel summary as a JSON line (each kernel's ``launches`` is
 its count over the counted runs of phases 5, 8 and 12, K4's over phase
 10; ``ms``, ``plain_ms``, ``bound_ms`` and ``library_ms`` sum the shapes
-of phases 3 and 6, 9, or 11, and K5's ``k1_ms`` is K1 on phase 11's
+of phases 3 and 6, 9, or 11, K1's and K3's ``gemm_ms`` the GEMM-alone
+yardstick over the same shapes, and K5's ``k1_ms`` is K1 on phase 11's
 shapes; ``bound_by`` is the larger of the summed operation and byte
-times), then the card's name and power limit, and last ``{"ok": true,
-"device": {...}}``.  Any failure raises: there is no CPU fallback.  The
+times; every bound is at ``roofline.FLOPS_RATE``, the rate of the units
+the kernel runs on), then the card's name and power limit, and last
+``{"ok": true, "device": {...}}``.  Any failure raises: there is no CPU fallback.  The
 run uses one card, the first visible one.  Usage:
 ``python3 chip_smoke.py [--steps N] [--seed S]``.
 """
@@ -174,43 +181,64 @@ REPLACES = {"graph_conv_fwd": f"{_PALLAS}:41",
 @dataclasses.dataclass
 class KernelStats:
     """One kernel over the shapes a phase checks it at: the largest error,
-    and the summed median times of the kernel, its plain version and the
-    library yardstick, and of its bound (with the operation and byte
-    times behind it)."""
+    and the summed median times of the kernel, its plain version, the
+    library yardstick and the GEMM-alone yardstick, and of its bound (with
+    the operation and byte times behind it) at the rate of the units it
+    runs on and, for continuity, at the fp32 rate."""
     max_abs_err: float = 0.0
     ms: float = 0.0
     plain_ms: float = 0.0
     bound_ms: float = 0.0
     ops_ms: float = 0.0
     bytes_ms: float = 0.0
+    bound_fp32_ms: float = 0.0
     library_ms: Optional[float] = None
+    gemm_ms: Optional[float] = None
     k1_ms: Optional[float] = None
 
-    def add(self, err, ms, plain_ms, cost, library_ms=None, flops_rate=None,
-            k1_ms=None) -> float:
+    def add(self, err, ms, plain_ms, cost, flops_rate, library_ms=None,
+            gemm_ms=None, k1_ms=None) -> float:
         """Adds one shape, ``cost`` = (flops, bytes) with the flops at
-        ``flops_rate`` (default: the fp32 peak); returns its bound."""
+        ``flops_rate``; returns its bound."""
         from octfusion_tpu_torch.ops import roofline
 
-        ops, nbytes = roofline.times_ms(
-            *cost, flops_rate=flops_rate or roofline.FP32_FLOPS)
+        ops, nbytes = roofline.times_ms(*cost, flops_rate=flops_rate)
         bound = max(ops, nbytes)
-        if k1_ms is not None:
-            self.k1_ms = (self.k1_ms or 0.0) + k1_ms
         self.max_abs_err = max(self.max_abs_err, err)
         self.ms += ms
         self.plain_ms += plain_ms
         self.bound_ms += bound
         self.ops_ms += ops
         self.bytes_ms += nbytes
-        if library_ms is not None:
-            self.library_ms = (self.library_ms or 0.0) + library_ms
+        self.bound_fp32_ms += max(roofline.times_ms(*cost))
+        for f, v in (("library_ms", library_ms), ("gemm_ms", gemm_ms),
+                     ("k1_ms", k1_ms)):
+            if v is not None:
+                setattr(self, f, (getattr(self, f) or 0.0) + v)
         return bound
 
     def merge(self, other: "KernelStats") -> None:
         self.max_abs_err = max(self.max_abs_err, other.max_abs_err)
-        for f in ("ms", "plain_ms", "bound_ms", "ops_ms", "bytes_ms"):
+        for f in ("ms", "plain_ms", "bound_ms", "ops_ms", "bytes_ms",
+                  "bound_fp32_ms"):
             setattr(self, f, getattr(self, f) + getattr(other, f))
+        for f in ("library_ms", "gemm_ms", "k1_ms"):
+            if getattr(other, f) is not None:
+                setattr(self, f, (getattr(self, f) or 0.0) + getattr(other, f))
+
+    def summary(self, label: str) -> None:
+        """Prints the sums over the phase's shapes and the shares of the
+        bound at both rates."""
+        extra = "".join(f" {f}={getattr(self, f):.4f}"
+                        for f in ("gemm_ms", "library_ms", "k1_ms")
+                        if getattr(self, f) is not None)
+        print(f"{label} sums: ms={self.ms:.4f} plain_ms={self.plain_ms:.4f}"
+              f"{extra} bound_ms={self.bound_ms:.4f} (by "
+              f"{self.entry()['bound_by']}) share_of_bound="
+              f"{self.bound_ms / self.ms:.3f} bound_fp32_ms="
+              f"{self.bound_fp32_ms:.4f} share_of_fp32_bound="
+              f"{self.bound_fp32_ms / self.ms:.3f} max_abs_err="
+              f"{self.max_abs_err:.3e}", flush=True)
 
     def entry(self) -> dict:
         out = {"max_abs_err": self.max_abs_err, "ms": self.ms,
@@ -218,8 +246,9 @@ class KernelStats:
                "bound_by": ("operations" if self.ops_ms >= self.bytes_ms
                             else "bytes"),
                "library_ms": self.library_ms}
-        if self.k1_ms is not None:
-            out["k1_ms"] = self.k1_ms
+        for f in ("gemm_ms", "k1_ms"):
+            if getattr(self, f) is not None:
+                out[f] = getattr(self, f)
         return out
 
 
@@ -286,7 +315,8 @@ def conv_shape_hooks(modules, shapes):
 
 def check_kernel(graph, shapes, gen) -> KernelStats:
     """Phases 3 and 6: K1 vs its plain version at each (level, C, C') of
-    ``graph``."""
+    ``graph``, timed beside the GEMM alone on the materialised column
+    buffer (``col @ W``, a yardstick the port never calls)."""
     from octfusion_tpu_torch.ops import graph_conv_cuda as k1
     from octfusion_tpu_torch.ops import roofline
 
@@ -295,27 +325,33 @@ def check_kernel(graph, shapes, gen) -> KernelStats:
     for d, c, cout in sorted(shapes):
         lvl = graph.level(d)
         row_ptr, col, scale = lvl.csr()
+        edges = (lvl.edge_row, lvl.edge_col, lvl.edge_dir, lvl.edge_scale)
         x = torch.randn(lvl.g_cap, c, device=dev, generator=gen)
         w = torch.randn(7 * c, cout, device=dev, generator=gen) / (7 * c) ** 0.5
         got = k1.graph_conv(x, w, row_ptr, col, scale)
-        ref = k1.graph_conv_plain(x, w, lvl.edge_row, lvl.edge_col,
-                                  lvl.edge_dir, lvl.edge_scale)
+        ref = k1.graph_conv_plain(x, w, *edges)
         torch.cuda.synchronize()
         err = (got - ref).abs().max().item()
         ref_max = ref.abs().max().item()
         if not ref_max > 0:
             raise AssertionError(f"all-zero reference at d={d} C={c}")
         torch.testing.assert_close(got, ref, **TOL_KERNEL)
+        del got, ref
         tk = cuda_ms(lambda: k1.graph_conv(x, w, row_ptr, col, scale))
-        tp = cuda_ms(lambda: k1.graph_conv_plain(
-            x, w, lvl.edge_row, lvl.edge_col, lvl.edge_dir, lvl.edge_scale))
+        tp = cuda_ms(lambda: k1.graph_conv_plain(x, w, *edges))
+        cbuf = k1.graph_conv_col_plain(x, *edges)
+        tg = cuda_ms(lambda: torch.matmul(cbuf, w))
+        del cbuf
         e = int(lvl.n_edges)
-        bound = stats.add(err, tk, tp,
-                          roofline.graph_conv_fwd_cost(lvl.g_cap, c, cout, e))
+        cost = roofline.graph_conv_fwd_cost(lvl.g_cap, c, cout, e)
+        bound = stats.add(err, tk, tp, cost,
+                          roofline.FLOPS_RATE["graph_conv_fwd"], gemm_ms=tg)
         print(f"k1 d={d} G={lvl.g_cap} E={e} C={c} C'={cout}"
               f" max_abs_err={err:.3e} max_rel_err={err / ref_max:.3e}"
               f" tol=rtol {TOL_KERNEL['rtol']:g} atol {TOL_KERNEL['atol']:g}"
-              f" kernel_ms={tk:.4f} plain_ms={tp:.4f} bound_ms={bound:.4f}",
+              f" kernel_ms={tk:.4f} plain_ms={tp:.4f} gemm_ms={tg:.4f}"
+              f" bound_ms={bound:.4f} share_of_bound={bound / tk:.3f}"
+              f" bound_fp32_ms={max(roofline.times_ms(*cost)):.4f}",
               flush=True)
     return stats
 
@@ -343,8 +379,9 @@ def check_hr_step(solver, g, seed):
 
 
 def check_backward_kernels(graph, shapes, gen):
-    """Phase 6: K2 and K3 vs their plain versions at each (level, C, C')
-    -> {kernel: KernelStats}."""
+    """Phase 6: K2 and K3 vs their plain versions at each (level, C, C'),
+    K3 timed beside the GEMM alone (``dout @ W^T``, as in its plain
+    version) -> {kernel: KernelStats}."""
     from octfusion_tpu_torch.ops import graph_conv_cuda as k
     from octfusion_tpu_torch.ops import roofline
 
@@ -363,14 +400,15 @@ def check_backward_kernels(graph, shapes, gen):
             "graph_conv_col": (
                 lambda: k.graph_conv_col(x, *csr),
                 lambda: k.graph_conv_col_plain(x, *edges),
-                roofline.graph_conv_col_cost(lvl.g_cap, c, e)),
+                roofline.graph_conv_col_cost(lvl.g_cap, c, e), None),
             "graph_conv_bwd_dx": (
                 lambda: k.graph_conv_bwd_dx(dout, w, *csr_t),
                 lambda: k.graph_conv_bwd_dx_plain(dout, w, *edges),
-                roofline.graph_conv_bwd_dx_cost(lvl.g_cap, c, cout, e)),
+                roofline.graph_conv_bwd_dx_cost(lvl.g_cap, c, cout, e),
+                lambda: torch.matmul(dout, w.t())),
         }
         line = [f"d={d} G={lvl.g_cap} E={e} C={c} C'={cout}"]
-        for name, (kern, plain, cost) in runs.items():
+        for name, (kern, plain, cost, gemm) in runs.items():
             got, ref = kern(), plain()
             torch.cuda.synchronize()
             err = (got - ref).abs().max().item()
@@ -379,9 +417,14 @@ def check_backward_kernels(graph, shapes, gen):
             torch.testing.assert_close(got, ref, **TOL_KERNEL)
             del got, ref
             tk, tp = cuda_ms(kern), cuda_ms(plain)
-            bound = res[name].add(err, tk, tp, cost)
+            tg = cuda_ms(gemm) if gemm else None
+            bound = res[name].add(err, tk, tp, cost,
+                                  roofline.FLOPS_RATE[name], gemm_ms=tg)
             line.append(f"{name} max_abs_err={err:.3e} kernel_ms={tk:.4f} "
-                        f"plain_ms={tp:.4f} bound_ms={bound:.4f}")
+                        f"plain_ms={tp:.4f} "
+                        + (f"gemm_ms={tg:.4f} " if gemm else "")
+                        + f"bound_ms={bound:.4f} share_of_bound="
+                        f"{bound / tk:.3f}")
         print("k2k3 " + " | ".join(line) + f" tol=rtol "
               f"{TOL_KERNEL['rtol']:g} atol {TOL_KERNEL['atol']:g}",
               flush=True)
@@ -527,7 +570,11 @@ def check_training(seed):
         f"d{d}={int(n)}" for d, n in enumerate(g_train.octree.nnum.tolist()))
         + " G " + " ".join(f"d{lvl.d}={lvl.g_cap}" for lvl in g_train.levels)
         + " E " + " ".join(f"d{lvl.d}={int(lvl.n_edges)}"
-                           for lvl in g_train.levels), flush=True)
+                           for lvl in g_train.levels)
+        + " largest slot (csr/csr_t) " + " ".join(
+            f"d{lvl.d}={int(lvl.csr()[0].diff().max())}/"
+            f"{int(lvl.csr_t()[0].diff().max())}" for lvl in g_train.levels),
+        flush=True)
     if g_train.any_overflow().item():
         raise AssertionError("the training batch's graph overflows")
     # K1 runs at every conv's shape, the frozen encoder's included; K2 and
@@ -545,6 +592,10 @@ def check_training(seed):
     measured = {"graph_conv_fwd": check_kernel(g_train, fwd_shapes | shapes,
                                                gen),
                 **check_backward_kernels(g_train, shapes, gen)}
+    for name, label in (("graph_conv_fwd", "k1 phase 6 (training)"),
+                        ("graph_conv_col", "k2 phase 6 (training)"),
+                        ("graph_conv_bwd_dx", "k3 phase 6 (training)")):
+        measured[name].summary(label)
     del g_train
 
     one = {k: v[:1] for k, v in batch.items()}
@@ -593,7 +644,8 @@ def check_chamfer(seed) -> KernelStats:
         tk = cuda_ms(lambda: k4.chamfer(a, b))
         tp = cuda_ms(lambda: k4.chamfer_plain(a, b))
         tl = cuda_ms(lambda: cdist_minima(a, b))
-        bound = stats.add(err, tk, tp, roofline.chamfer_cost(bsz, n, m), tl)
+        bound = stats.add(err, tk, tp, roofline.chamfer_cost(bsz, n, m),
+                          roofline.FLOPS_RATE["chamfer"], library_ms=tl)
         if case == "eval":
             cd_ms[bsz] = tk
         print(f"k4 {case} B={bsz} N={n} M={m} max_abs_err={err:.3e} "
@@ -750,7 +802,8 @@ def check_packed_kernel(graph, shapes, gen) -> KernelStats:
         e = int(lvl.n_edges)
         bound = stats.add(err, tk, tp,
                           roofline.graph_conv_fwd_cost(lvl.g_cap, c, cout, e),
-                          flops_rate=roofline.TF32_FLOPS, k1_ms=t1)
+                          roofline.FLOPS_RATE["graph_conv_fwd_packed"],
+                          k1_ms=t1)
         print(f"k5 d={d} G={lvl.g_cap} E={e} C={c} C'={cout}"
               f" max_abs_err={err:.3e} max_rel_err={err / ref_max:.3e}"
               f" tol=rtol {TOL_KERNEL['rtol']:g} atol {TOL_KERNEL['atol']:g}"
@@ -956,6 +1009,7 @@ def main(argv=None):
                     help="ancestral steps of each diffusion stage")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
+    t_start = time.perf_counter()
 
     # ---- 1. device ---------------------------------------------------
     if not torch.cuda.is_available():
@@ -1001,12 +1055,14 @@ def main(argv=None):
     g_warm = warm["decode_out"]["graph_out"]
     k1 = check_kernel(
         g_warm, shapes, torch.Generator(device=dev).manual_seed(args.seed))
+    k1.summary("k1 phase 3 (sampling)")
 
     # ---- 11. K5 vs plain and K1 on the sampling graph's levels 4-6 -----
     k5 = check_packed_kernel(
         warm["graph"], {sh for sh in shapes if sh[0] <= m.depth_stop}
         | RAGGED_PACKED,
         torch.Generator(device=dev).manual_seed(args.seed + 6))
+    k5.summary("k5 phase 11")
 
     # ---- 4. one full-width hr denoise step, card vs CPU ---------------
     check_hr_step(solver, warm["graph"], args.seed)
@@ -1087,12 +1143,15 @@ def main(argv=None):
 
     # ---- 9. K4 vs plain; CD / EMD pairs/s ----------------------------
     measured["chamfer"] = check_chamfer(args.seed)
+    measured["chamfer"].summary("k4 phase 9")
 
     # ---- 10. evaluation from meshes ----------------------------------
     launches["chamfer"] = check_evaluation(args.seed)
     measured["graph_conv_fwd_packed"] = k5
     launches["graph_conv_fwd_packed"] = k5_launches
 
+    print(f"chip_smoke: all phases passed in "
+          f"{time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": SOURCES[name],
         "replaces": REPLACES[name], "launches": launches[name],

@@ -102,6 +102,33 @@ class GraphSpec:
         return self.edge_factor * self.g_cap(d)
 
 
+def csr_of_edges(edge_row, edge_col, edge_dir, edge_scale, g: int):
+    """``(row_ptr, col, scale)`` of an edge list sorted by ``row*7 + dir``:
+    ``row_ptr[s]..row_ptr[s+1]`` are the edges of slot ``s = row*7 + dir``
+    (int32, ``g*7 + 1`` entries).  Invalid edges carry ``row = g`` and so
+    fall past the last slot."""
+    slot = edge_row * N_EDGE_TYPE + edge_dir
+    bounds = torch.arange(g * N_EDGE_TYPE + 1, device=slot.device)
+    return (torch.searchsorted(slot, bounds).to(torch.int32),
+            edge_col.to(torch.int32).contiguous(),
+            edge_scale.to(torch.float32).contiguous())
+
+
+def csr_t_of_edges(edge_row, edge_col, edge_dir, edge_scale, g: int):
+    """``(trow_ptr, t_row, t_scale)``: the valid edges (``row < g``) stably
+    sorted by ``col*7 + dir``; ``trow_ptr[s]..trow_ptr[s+1]`` are the edges
+    of slot ``s = col*7 + dir`` (int32, ``g*7 + 1`` entries), ``t_row``
+    their rows (int32) and ``t_scale`` their scales.  Invalid edges are
+    keyed past the last slot, so no kernel reads them."""
+    key = torch.where(edge_row < g, edge_col * N_EDGE_TYPE + edge_dir,
+                      g * N_EDGE_TYPE)
+    key, order = torch.sort(key, stable=True)
+    bounds = torch.arange(g * N_EDGE_TYPE + 1, device=key.device)
+    return (torch.searchsorted(key, bounds).to(torch.int32),
+            edge_row[order].to(torch.int32),
+            edge_scale[order].to(torch.float32))
+
+
 @dataclasses.dataclass(frozen=True)
 class GraphLevel:
     """The level-d dual graph: padded edge lists + per-vertex metadata."""
@@ -137,39 +164,21 @@ class GraphLevel:
         return tensors_to(self, device)
 
     def csr(self):
-        """``(row_ptr, col, scale)`` for the CUDA graph convolution, built
-        once per level: ``row_ptr[s]..row_ptr[s+1]`` are the edges of slot
-        ``s = row*7 + dir`` (int32, ``G*7 + 1`` entries).  Invalid edges
-        carry ``row = g_cap`` and so fall past the last slot."""
+        """:func:`csr_of_edges` of this level (the CUDA graph
+        convolution's CSR), built once."""
         if self._csr is None:
-            g = self.g_cap
-            slot = self.edge_row * N_EDGE_TYPE + self.edge_dir
-            bounds = torch.arange(g * N_EDGE_TYPE + 1, device=slot.device)
-            row_ptr = torch.searchsorted(slot, bounds).to(torch.int32)
-            csr = (row_ptr, self.edge_col.to(torch.int32).contiguous(),
-                   self.edge_scale.to(torch.float32).contiguous())
-            object.__setattr__(self, "_csr", csr)
+            object.__setattr__(self, "_csr", csr_of_edges(
+                self.edge_row, self.edge_col, self.edge_dir, self.edge_scale,
+                self.g_cap))
         return self._csr
 
     def csr_t(self):
-        """``(trow_ptr, t_row, t_scale)``: the edges stably sorted by
-        ``col*7 + dir``, built once per level on the device.
-        ``trow_ptr[s]..trow_ptr[s+1]`` are the edges of slot
-        ``s = col*7 + dir`` (int32, ``G*7 + 1`` entries), ``t_row`` their
-        rows (int32) and ``t_scale`` their scales.  Invalid edges
-        (``row = g_cap``) are keyed past the last slot, so no kernel reads
-        them."""
+        """:func:`csr_t_of_edges` of this level (K3's transposed CSR),
+        built once on the device."""
         if self._csr_t is None:
-            g = self.g_cap
-            key = torch.where(self.edge_row < g,
-                              self.edge_col * N_EDGE_TYPE + self.edge_dir,
-                              g * N_EDGE_TYPE)
-            key, order = torch.sort(key, stable=True)
-            bounds = torch.arange(g * N_EDGE_TYPE + 1, device=key.device)
-            csr_t = (torch.searchsorted(key, bounds).to(torch.int32),
-                     self.edge_row[order].to(torch.int32),
-                     self.edge_scale[order].to(torch.float32))
-            object.__setattr__(self, "_csr_t", csr_t)
+            object.__setattr__(self, "_csr_t", csr_t_of_edges(
+                self.edge_row, self.edge_col, self.edge_dir, self.edge_scale,
+                self.g_cap))
         return self._csr_t
 
 

@@ -37,18 +37,18 @@ there.
 The TPU kernels turn the gathers into one-hot matmuls over a descriptor
 plan because the TPU has no fast per-row gather.  Hopper has one, so the
 CUDA kernels read the CSR the sorted edge list already implies
-(``GraphLevel.csr``) or its transpose.  What bounds K1 and K3 on an H100:
-at small C the gather, whose bytes are ~7 x E/G x C x 4 per output row and
-which each column tile of the output repeats; at large C the fp32 FMAs of
-the GEMM (7C x C' per row, 67 TFLOP/s peak outside the tensor cores).  The
-design answers the first by gathering a [64 x 32] tile of the column
-buffer straight into shared memory (a warp per row, lanes on consecutive
-channels, so each neighbour read is one coalesced 128-byte line) and using
-it for 64 output columns; and the second by a 4 x 4 register micro-tile
-per thread over K-chunks of 32.  K2 is bound by its bytes: it reads
-E x C and writes G x 7C floats, a warp per (row, dir) slot with lanes on
-channels.  K5 is the one on the tensor cores (WMMA, no pipelining);
-wgmma, TMA and bf16 are later work.
+(``GraphLevel.csr``) or its transpose.  K1 and K3 share one gather-GEMM
+template: a block stages its 64-row tile's CSR slice in shared memory
+once (in pieces of 1024 edges where it is longer), gathers [64, 32]
+chunks of the column buffer from it (the neighbour loads of the next
+chunk and W's next chunk, by ``cp.async``, in flight under the math) and
+multiplies each by up to 128 columns of W on the tensor cores in the
+3xTF32 split, which keeps fp32 accuracy.  What bounds them on an H100:
+the ``mma.sync`` TF32 rate with the split's extra instructions, and the
+gather and W staging, which overlap the math only in part.  K2 is bound
+by its bytes: it reads E x C and writes G x 7C floats, a warp per (row,
+dir) slot with lanes on channels.  K5 keeps a gather that walks the CSR
+per pack (no staging, no pipelining); wgmma, TMA and bf16 are later work.
 
 Beside each kernel sits its plain PyTorch version (gather, scale,
 ``index_add_``; for K1 and K3 a GEMM).  The wrappers take the plain

@@ -1,15 +1,15 @@
 """The least time an NVIDIA H100 SXM could take for each kernel's work:
 the larger of its operations over the peak rate of the units it runs on
-and its bytes over the HBM rate.
+(``FLOPS_RATE``) and its bytes over the HBM rate.
 
-Rates from NVIDIA's data sheet, at the 700 W power limit: 67 TFLOP/s in
-fp32 outside the tensor cores (K1-K4 compute in fp32 with TF32 off),
-495 TFLOP/s of dense TF32 on the tensor cores (K5, whose 3xTF32 split
-issues three tensor-core products per product: its bound counts the
-function's operations once at this rate, so no share of it can pass
-100%), and 3.35 TB/s of HBM.  Bytes count each input read once and each
-output written once; operations count what the function needs on these
-inputs (the edges present, not the capacity)."""
+Rates from NVIDIA's data sheet, at the 700 W power limit: 495 TFLOP/s of
+dense TF32 on the tensor cores (K1, K3 and K5, whose 3xTF32 split issues
+three tensor-core products per product: their bounds count the
+function's operations once at this rate, so no share can pass 100%),
+67 TFLOP/s in fp32 outside the tensor cores (K2 and K4), and 3.35 TB/s
+of HBM.  Bytes count each input read once and each output written once;
+operations count what the function needs on these inputs (the edges
+present, not the capacity)."""
 
 from __future__ import annotations
 
@@ -19,6 +19,12 @@ HBM_BYTES = 3.35e12       # bytes/s
 N_EDGE_TYPE = 7
 F32 = 4
 I32 = 4
+# the peak rate of the units each kernel's operations run on, by entry
+# point: the graph conv's GEMMs on the tensor cores, K2's sums and K4's
+# distances on the fp32 units
+FLOPS_RATE = {"graph_conv_fwd": TF32_FLOPS, "graph_conv_bwd_dx": TF32_FLOPS,
+              "graph_conv_fwd_packed": TF32_FLOPS,
+              "graph_conv_col": FP32_FLOPS, "chamfer": FP32_FLOPS}
 
 
 def times_ms(flops: float, nbytes: float, flops_rate: float = FP32_FLOPS):
@@ -36,7 +42,7 @@ def _csr_bytes(g: int, e: int) -> int:
 def graph_conv_fwd_cost(g: int, c: int, cout: int, e: int):
     """K1 and K5, ``out [G, C'] = col(x) @ W``: the GEMM's 2 * G * 7C * C'
     and the gather's 2 * E * C FLOP; x and W read, the CSR read, out
-    written -> (flops, bytes).  K5's flops go at ``TF32_FLOPS``."""
+    written -> (flops, bytes)."""
     flops = 2 * g * N_EDGE_TYPE * c * cout + 2 * e * c
     nbytes = (g * c + N_EDGE_TYPE * c * cout + g * cout) * F32 + _csr_bytes(g, e)
     return flops, nbytes

@@ -1,6 +1,8 @@
 """Card-only tests of the port's CUDA kernels against their plain PyTorch
 versions: the graph conv's K1 forward, K2 column buffer, K3 input
-gradient and K5 packed forward (with its autograd guard), the
+gradient (K1 and K3 also on the edge-case level of
+``test_torch_port_csr_cases`` and at ragged widths) and K5 packed forward
+(with its autograd guard), the
 differentiable graph conv on the card, and the Chamfer kernel K4 with the
 evaluation's tile loop.  They skip without a GPU; on
 one, run them with
@@ -14,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+import test_torch_port_csr_cases as csr_cases
 from octfusion_tpu_torch.octree.dual_graph import (build_dual_graph,
                                                    with_packed_levels)
 from octfusion_tpu_torch.octree.octree import OctreeSpec
@@ -48,14 +51,28 @@ def _graph(device, seed=0, depth=8, full_depth=4):
                             up_to=full_depth + 2)
 
 
+def _levels(graph, device):
+    """Levels 4-6 of ``graph``, then ``csr_cases.synthetic_level``:
+    slots of >= 2000 edges in the CSR and the transposed CSR (tile ranges
+    walked in 3 staging pieces), row tiles without edges, a tile of light
+    slots across two pieces, padding edges, G = 1000 (not a multiple of
+    the 64-row tile)."""
+    return [graph.level(d) for d in (4, 5, 6)] + [
+        csr_cases.synthetic_level(device=device)]
+
+
+# ragged C and C' (not multiples of 4 or 8: 16-byte copies of W only where
+# its rows are aligned, zero-padded k8 tails), C' below the 128-column tile
+# (32- and 64-column tiles), and C' = 3 (a 4-byte-copied W)
 @pytest.mark.cuda
 @pytest.mark.parametrize("c,cout", [(8, 128), (133, 128), (260, 256),
-                                    (515, 512), (38, 32), (31, 24)])
+                                    (515, 512), (38, 32), (31, 24),
+                                    (131, 128), (259, 256), (516, 512),
+                                    (772, 512), (64, 48), (128, 3)])
 def test_kernel_matches_plain(cuda, c, cout):
     g = _graph(cuda)
     gen = torch.Generator(device=cuda).manual_seed(c)
-    for d in (4, 5, 6):
-        lvl = g.level(d)
+    for lvl in _levels(g, cuda):
         x = torch.randn(lvl.g_cap, c, device=cuda, generator=gen)
         w = torch.randn(7 * c, cout, device=cuda, generator=gen) / (7 * c) ** 0.5
         row_ptr, col, scale = lvl.csr()
@@ -88,14 +105,16 @@ def test_graph_conv_dispatch_and_cpu_parity(cuda):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("c,cout", [(8, 128), (133, 128), (260, 256),
-                                    (772, 256), (31, 24)])
+                                    (772, 256), (31, 24), (515, 512),
+                                    (131, 131), (516, 512), (48, 64)])
 def test_backward_kernels_match_plain(cuda, c, cout):
     """K2 (column buffer) and K3 (dx over the transposed CSR) against
-    their plain versions at levels 4-6."""
+    their plain versions at levels 4-6 and on the synthetic edge-case
+    level (K3's output width is C: 8, 31 and 48 take its 32- and
+    64-column tiles; C' = 131 its 4-byte-copied W^T)."""
     g = _graph(cuda, seed=4)
     gen = torch.Generator(device=cuda).manual_seed(c)
-    for d in (4, 5, 6):
-        lvl = g.level(d)
+    for lvl in _levels(g, cuda):
         edges = (lvl.edge_row, lvl.edge_col, lvl.edge_dir, lvl.edge_scale)
         x = torch.randn(lvl.g_cap, c, device=cuda, generator=gen)
         dout = torch.randn(lvl.g_cap, cout, device=cuda, generator=gen)

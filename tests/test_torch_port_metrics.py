@@ -233,3 +233,32 @@ def test_roofline_bounds():
     ops_ms, bytes_ms = roofline.times_ms(flops, nbytes)
     assert ops_ms == pytest.approx(0.128208, rel=1e-5)
     assert bytes_ms == pytest.approx(0.0050082, rel=1e-4)
+
+
+def test_graph_conv_gemm_bounds_use_the_tf32_rate():
+    """K1 and K3 run their GEMMs on the tensor cores (3xTF32): their bounds
+    take the dense TF32 rate, the function's operations counted once, as
+    K5's; K2 and K4 stay at the fp32 rate."""
+    rate = roofline.FLOPS_RATE
+    for name in ("graph_conv_fwd", "graph_conv_bwd_dx",
+                 "graph_conv_fwd_packed"):
+        assert rate[name] == roofline.TF32_FLOPS == 495e12
+    for name in ("graph_conv_col", "chamfer"):
+        assert rate[name] == roofline.FP32_FLOPS == 67e12
+    # K1 at level 4, 515 -> 512: 15.148 GFLOP, 0.0306 ms at 495 TFLOP/s
+    # against 0.2261 ms at 67; its 24.2 MB still take 0.0073 ms
+    cost = roofline.graph_conv_fwd_cost(4096, 515, 512, 27136)
+    ops_ms, bytes_ms = roofline.times_ms(*cost,
+                                         flops_rate=rate["graph_conv_fwd"])
+    assert ops_ms == pytest.approx(15_148_416_000 / 495e12 * 1e3, rel=1e-12)
+    assert ops_ms == pytest.approx(0.0306029, rel=1e-5)
+    assert ops_ms > bytes_ms
+    # K3 at level 6, dout 128 wide, C = 131, E = 102663: the GEMM's
+    # 2 * G * 7 * 131 * 128 and the gather's 2 * E * 128 FLOP
+    flops, nbytes = roofline.graph_conv_bwd_dx_cost(16384, 131, 128, 102663)
+    assert flops == 2 * 16384 * 7 * 131 * 128 + 2 * 102663 * 128
+    ops_ms, bytes_ms = roofline.times_ms(
+        flops, nbytes, flops_rate=rate["graph_conv_bwd_dx"])
+    assert ops_ms == pytest.approx(0.0078231, rel=1e-4)
+    assert bytes_ms == pytest.approx(0.0055891, rel=1e-4)
+    assert ops_ms > bytes_ms     # still operation-bound on the TF32 rate
