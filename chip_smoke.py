@@ -72,10 +72,11 @@ input gradient and K5 packed forward; the Chamfer kernel K4):
 11. K5 vs plain and vs K1 (run right after phase 3, on its warm-up graph):
    at every (level, C, C') of levels 4-6 that phase 3 saw (the hr U-Net's
    convs and the decoder's depth-6 convs, which K5 runs when the sampling
-   graph is packed) and the ragged 515 -> 512 and 131 -> 128, K5 against
-   its plain version (rtol = atol = 1e-4), timed with K1 on the same
-   tensors (CUDA events, median of 20) beside its bound at the TF32
-   tensor-core rate; then K5 under autograd must raise, launching nothing;
+   graph is packed) and the ragged 515 -> 512 and 131 -> 128, K5 (K1's
+   template over the flat 7C axis) against its plain version (rtol = atol
+   = 1e-4), timed with K1 on the same tensors (CUDA events, median of 20)
+   beside its bound at the TF32 tensor-core rate; then K5 under autograd
+   must raise, launching nothing;
 12. the DPM-Solver++(2M) cascade at full width (``Config()`` with
    ``sampler="dpmpp"``, 25 + 25 steps, batch 1, 256³ SDF grid), seeded
    weights perturbed with seeded noise (the zero-initialised hr output
@@ -91,7 +92,8 @@ input gradient and K5 packed forward; the Chamfer kernel K4):
    first writes with ``utils/ckpt.save`` (reference checkpoint layout, and
    the VAE's ``autoencoder`` entry), into a temp dir, with a temp config
    whose one change is ``solver.resolution: 64`` (random weights decode
-   noise, whose 256³ mesh is ~10^8 faces of text): 4 non-empty ``.obj``
+   noise, whose 256³ mesh is ~10^8 faces of text; the CLI sets fp32 with
+   TF32 off itself): 4 non-empty ``.obj``
    files, 4 ``[*] wrote`` lines and K5 launches in its summary line; a
    second run must skip all 4.
 
@@ -544,10 +546,12 @@ def run_training(solver, batch, draws, n_steps):
     return launches
 
 
-def check_training(seed):
-    """Phases 6-8 on the hr stage of ``configs/octfusion_snet_uncond.yaml``
-    -> (K1 / K2 / K3 measurements at the training shapes, the training
-    run's launch counts)."""
+def training_setup(seed):
+    """The hr stage of ``configs/octfusion_snet_uncond.yaml`` on the card
+    -> (trainer, config, batch, draws, the batch's graph, the (level, C,
+    C') of every conv of a train step's forward (K1: the frozen encoder's
+    included), those of the differentiable convs (K2, K3)).  Prints the
+    graph's sizes; raises if it overflows."""
     from octfusion_tpu_torch.config import load_config
     from octfusion_tpu_torch.models.union_solver import UnionSolver
     from octfusion_tpu_torch.utils.shapes import lumpy_spheres
@@ -588,9 +592,18 @@ def check_training(seed):
                         times=draws["times"], noise=draws["noise"])
     for h in hooks:
         h.remove()
+    return trainer, tcfg, batch, draws, g_train, fwd_shapes | shapes, shapes
+
+
+def check_training(seed):
+    """Phases 6-8 on the hr stage of ``configs/octfusion_snet_uncond.yaml``
+    -> (K1 / K2 / K3 measurements at the training shapes, the training
+    run's launch counts)."""
+    dev = torch.device("cuda")
+    trainer, tcfg, batch, draws, g_train, fwd_shapes, shapes = \
+        training_setup(seed)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    measured = {"graph_conv_fwd": check_kernel(g_train, fwd_shapes | shapes,
-                                               gen),
+    measured = {"graph_conv_fwd": check_kernel(g_train, fwd_shapes, gen),
                 **check_backward_kernels(g_train, shapes, gen)}
     for name, label in (("graph_conv_fwd", "k1 phase 6 (training)"),
                         ("graph_conv_col", "k2 phase 6 (training)"),
@@ -1021,13 +1034,13 @@ def main(argv=None):
     from octfusion_tpu_torch.ops import chamfer_cuda, graph_conv_cuda
     from octfusion_tpu_torch.utils import mesh as mesh_utils
     from octfusion_tpu_torch.utils import sdf as sdf_utils
+    from octfusion_tpu_torch.utils.device import use_fp32_math
 
     dev = torch.device("cuda")
     card = smi()
     print(f"device: {torch.cuda.get_device_name(0)} | {card} | torch "
           f"{torch.__version__} cuda {torch.version.cuda}", flush=True)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    use_fp32_math()
 
     # ---- 2. build: one nvcc per source, all at once ------------------
     t0 = time.perf_counter()

@@ -1,6 +1,6 @@
 // Dual-graph convolution kernels for Hopper (sm_90a): the forward (K1), the
-// column buffer alone (K2), the input gradient (K3) and the forward on the
-// tensor cores (K5) of
+// column buffer alone (K2), the input gradient (K3) and the forward over
+// the flat 7C axis (K5) of
 //
 //   col[r, d*C + k] = sum_{e in CSR slot r*7+d} scale[e] * x[col_idx[e], k]
 //   out[r, n]       = sum_{d, k} col[r, d*C + k] * w[d*C + k, n]
@@ -16,10 +16,11 @@
 //    over the transposed CSR (slots col*7+dir, holding each edge's row and
 //    scale): the gathered operand is dout and the GEMM reads W_d transposed
 //    in place.
-// K5 graph_conv_fwd_packed  out = col(x) @ w, over packs of the flat 7C axis
+// K5 graph_conv_fwd_packed  out = col(x) @ w, in chunks of the flat 7C axis
 //
-// K1 and K3 share one template, gather_gemm_kernel, which replaces the
-// forward `_fwd_kernel` and the input gradient `_bwd_kernel` of
+// K1, K3 and K5 are one template, gather_gemm_kernel<BN, kT, kFlat>, which
+// replaces the forward `_fwd_kernel`, the input gradient `_bwd_kernel` and
+// the k-packed forward `_fwd_kernel_packed` of
 // octfusion_tpu/ops/pallas/graph_conv_kernel.py.  A block owns GM = 64
 // output rows and BN = 32, 64 or 128 output columns (the whole C' up to
 // 128).  The [G, 7C] column buffer never reaches device memory, and K3
@@ -36,12 +37,23 @@
 //   cp.async, and turns the pointers into one word per slot, (first edge,
 //   count); a range longer than kEdgeStage edges (a coarse node's face
 //   can border 4^k finer nodes) is walked in pieces, each a full pass
-//   over (direction, K-chunk) whose products add into the same
-//   accumulators.  A gather then issues only the neighbour rows' loads,
-//   all addresses known: a warp keeps the first edge of each of its 8
-//   rows in flight together, then any deeper edges kDeep a row at a
-//   time (one lane per channel, so each is one coalesced line).  A tile without edges writes zeros; a direction
-//   without edges in the piece is skipped.
+//   over the K-chunks whose products add into the same accumulators.  A
+//   gather then issues only the neighbour rows' loads, all addresses
+//   known: a warp keeps the first edge of each of its 8 rows in flight
+//   together, then any deeper edges kDeep a row at a time (one lane per
+//   column of the chunk, so each is one coalesced line, or two where a K5
+//   chunk crosses a direction).  A tile without edges writes zeros.
+// - The K-chunks.  K1 and K3 walk (direction, 32 channels) over the
+//   directions with edges in the piece: ceil(C/32) chunks a direction, so
+//   a ragged or narrow C pads every direction's last chunk.  K5 (kFlat)
+//   walks the flat 7C axis in chunks of 32 columns, ceil(7C/32) in all
+//   (C = 515: 113 against 119; C = 6: 2 against 7), skipping the chunks
+//   whose directions have no edges in the piece.  A K5 chunk may span
+//   several directions (two at C >= 32, up to six at C = 6): each lane
+//   finds its own direction d = (k0 + lane) / C and channel, reads its
+//   own (row, d) slot from the slot table, and walks deeper edges to the
+//   warp's largest count with a predicate.  Its W chunk is the 32
+//   contiguous rows k0 .. k0 + 32 of w.
 // - One gathered [64, 32] chunk serves BN output columns, so the column
 //   buffer is gathered ceil(C'/128) times instead of C'/64.
 // - Two stages in dynamic shared memory: while the tensor cores multiply
@@ -49,60 +61,58 @@
 //   i+1's gather are in flight; one block barrier per chunk.
 // - Math: mma.sync m16n8k8 TF32 in the 3xTF32 split (a_lo b_hi + a_hi b_lo
 //   + a_hi b_hi), each 8-deep step from a zero fragment, added to the fp32
-//   accumulators with IEEE adds (K5's rule; the tensor cores' own fp32
-//   accumulation truncates): fp32 accuracy.  8 warps, each a 32 x 32
+//   accumulators with IEEE adds (the tensor cores' own fp32 accumulation
+//   truncates: over the whole 7C axis its bias reaches ~1e-4 at C = 515):
+//   fp32 accuracy.  8 warps, each a 32 x 32
 //   (BN = 128) or 16 x 32 / 16 x 16 slice of the tile, which skips its
 //   8-column tiles past N.  A split into TF32 halves rounds with two
-//   integer operations (cvt.rna.tf32.f32 compiles to several).  K1's B is
-//   W_d, staged k-major; K3's is W_d^T read in place
+//   integer operations (cvt.rna.tf32.f32 compiles to several).  K1's and
+//   K5's B is W's chunk, staged k-major; K3's is W_d^T read in place
 //   (w[(d*N + n)*K + k] is k-contiguous), staged n-major.  A fragment's
 //   k slots t and t + 4 take the adjacent k = 2t, 2t + 1, so A (and K3's
 //   B) fragments load as 8-byte pairs; the strides keep every fragment
 //   read free of bank conflicts.
 // - Ragged widths: W's chunks load in 16-byte copies only where its rows
 //   are 16-byte aligned (else 4-byte), zero-filled past K and N; the
-//   gathered chunk's channels past K are zeros in shared memory, and only
+//   gathered chunk's columns past K are zeros in shared memory, and only
 //   the chunk's 8-deep steps that hold data run.
 // Shared memory: 2 stages of (64 * 40 + 32 * 132) floats (K3: 64 * 40 +
-// 128 * 40) and the CSR slice, 452 + 448 + 2 * 1024 words: 66.1 KB (K1,
-// BN = 128) or 73.2 KB (K3), dynamic; registers allow two blocks an SM.
+// 128 * 40) and the CSR slice, 452 + 448 + 2 * 1024 words: 66.1 KB (K1 and
+// K5, BN = 128) or 73.2 KB (K3), dynamic; registers allow two blocks an SM.
 //
-// K2 writes the column buffer: a warp per (row, dir) slot, lanes on
-// consecutive channels, so every neighbour read is a coalesced line and
-// every slot's row of `col` is written once (zeros where it has no edges).
-//
-// K5 graph_conv_fwd_packed  K1's function on the tensor cores; replaces
-//    the k-packed forward `_fwd_kernel_packed` of
-//    octfusion_tpu/ops/pallas/graph_conv_kernel.py, whose one matrix-unit
-//    issue consumes K_PACK = 4 gathered blocks.  Here the 7C axis of the
-//    column buffer is one flat K axis cut into packs of 4 x 32 = 128
-//    columns; a pack may cross direction boundaries, so a ragged C (131,
-//    515) pads only the last pack, not every direction.  A block owns a
-//    64 x 64 output tile.  Per pack it gathers the [64, 128] tile of the
-//    column buffer from the CSR into shared memory (a lane per column,
-//    each looking up its own direction's slot, a warp over 4 rows at a
-//    time so that 16 chains of dependent loads per lane overlap), stages
-//    W's matching [128, 64] rows beside it, and multiplies them with WMMA
-//    m16n16k8 TF32 fragments in the error-compensated 3xTF32 split
-//    (a_hi b_hi + a_hi b_lo + a_lo b_hi), each 8-deep step's products
-//    added to fp32 register accumulators with IEEE adds, which keeps
-//    fp32 accuracy.  8 warps, each a 16 x 32 slice of the tile.  What
-//    bounds it: by count, the GEMM (3 TF32 tensor-core products per
-//    product); in practice the latency of the
-//    gather's dependent loads, which nothing overlaps with the tensor-core
-//    work yet (no pipelining).  Shared memory: (64 * 132 + 128 * 68) * 4
-//    = 67 KB, dynamic.  Forward only.
-//
+// K2 graph_conv_col replaces `_col_kernel`.  By count it is bound by its
+// bytes, 7/8 of them the [G, 7C] write; in practice also by the latency
+// of its dependent loads (slot bounds -> edge -> neighbour row), since
+// most slots hold one edge or none.  The column buffer is written as one
+// stream: a block of 512 threads owns a stretch of whole slots, about
+// kColFloats floats of col (fewer where the level is small, so that every
+// SM gets two stretches) and at most a tile's 448 slots, a multiple of 4
+// slots so that every stretch starts 16-byte aligned.
+// - A stretch without edges (the padding rows past a level's nodes) is
+//   written as zeros, nothing read.
+// - Otherwise the block stages the stretch's slot pointers and edge range
+//   (idx, scale) once by cp.async.  A thread's unit is 4 consecutive
+//   floats of the stretch, stored in one 16-byte store whatever C: a
+//   narrow C packs several slots into a warp (C = 8: 16 slots a warp),
+//   and a unit that crosses a slot (C not a multiple of 4) sums each
+//   float over its own slot.  x's rows load as float4 where C % 4 == 0 and
+//   x is 16-byte aligned, else as 4 floats; the edge loop is unrolled 4
+//   deep, so up to 4 neighbour loads are in flight.
+// - A stretch whose edge range overflows the stage (kEdgeStage edges)
+//   holds a heavy slot (a coarse node's face can border 4^k finer
+//   nodes): there the warps share out (slot, 32-channel) pieces, a lane a
+//   channel, reading the edges in place.
+// Each (slot, channel) sum runs in edge order from zero, one fma per edge
+// on the fp32 units, on every path.
+
 // Each entry point returns cudaGetLastError() after its launch.
 
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 namespace {
 
 constexpr int kDirs = 7;
-constexpr int kColWarps = 8;                      // K2: slots per block
 
 // ---- K1 / K3 --------------------------------------------------------
 constexpr int GM = 64;                  // output rows per block
@@ -118,7 +128,13 @@ constexpr int kPtrWords = (kDirs * GM + 1 + 3) / 4 * 4;  // slot pointers
 constexpr int kSlotWords = kDirs * GM;  // a piece's (first edge, count) per slot
 constexpr int kGStride = GK + 8;        // floats per row of a gathered chunk
 
-static_assert(GK == 32, "one lane per channel of a gathered chunk");
+static_assert(GK == 32, "one lane per column of a gathered chunk");
+
+// ---- K2 -------------------------------------------------------------
+constexpr int kColThreads = 512;
+constexpr int kColWarps = kColThreads / 32;
+constexpr int kColFloats = 8192;        // col floats a stretch aims at
+constexpr int kColSlots = kDirs * GM;   // at most a tile's 448 slots a stretch
 
 // the shapes behind a BN-column tile.  A stage holds the gathered chunk,
 // [GM][GK + 8], and B_d's chunk, [GK][BN + 4] (K1, k-major) or
@@ -205,10 +221,11 @@ __device__ __forceinline__ void mma_tf32_zero(float (&d)[4],
 
 // out[G, N] = sum_d gather_d(src)[G, K] @ B_d[K, N], where
 // gather_d(src)[r, k] = sum_{e in slot r*7+d} scale[e] * src[idx[e], k] and
-// B_d = w[d*K:(d+1)*K, :] ([7K, N]; K1) or w[d*N:(d+1)*N, :]^T ([7N, K]; K3).
-// vec_w: W's rows are 16-byte aligned (w aligned and N (K1) or K (K3) a
-// multiple of 4).
-template <int BN, bool kT>
+// B_d = w[d*K:(d+1)*K, :] ([7K, N]; K1 and K5) or w[d*N:(d+1)*N, :]^T
+// ([7N, K]; K3).  kFlat (K5): the same sum as K1's, in chunks of the flat
+// [G, 7K] column buffer and W's matching rows.  vec_w: W's rows are
+// 16-byte aligned (w aligned and N (K1, K5) or K (K3) a multiple of 4).
+template <int BN, bool kT, bool kFlat>
 __global__ void __launch_bounds__(kGemmThreads, 2)
 gather_gemm_kernel(const float* __restrict__ src,
                    const float* __restrict__ w,
@@ -217,6 +234,7 @@ gather_gemm_kernel(const float* __restrict__ src,
                    const float* __restrict__ scale,
                    float* __restrict__ out,
                    int G, int K, int N, int vec_w) {
+  static_assert(!(kT && kFlat), "the flat walk is a forward");
   using T = GemmTile<BN, kT>;
   extern __shared__ __align__(16) float gemm_smem[];  // 2 stages of [A | B_d]
   float* smem = gemm_smem;
@@ -236,7 +254,8 @@ gather_gemm_kernel(const float* __restrict__ src,
   const int rows = min(GM, G - m0);
   const int wm = (warp / T::kWarpsN) * 16 * T::kMT;
   const int wn = (warp % T::kWarpsN) * 8 * T::kNT;
-  const int nk = (K + GK - 1) / GK;
+  const int KW = kFlat ? kDirs * K : K;    // the K axis the chunks walk
+  const int nk = (KW + GK - 1) / GK;
   const int e_begin = ptr[m0 * kDirs];
   const int e_end = ptr[(m0 + rows) * kDirs];
 
@@ -281,11 +300,36 @@ gather_gemm_kernel(const float* __restrict__ src,
       e = b + (v & 0xffff);
     };
     const unsigned mask = dir_mask;
-    const int steps = __popc(mask) * nk;
+    constexpr unsigned kAllDirs = (1u << kDirs) - 1u;
+
+    // K5: does flat chunk c span a direction with edges in the piece?
+    auto chunk_live = [&](int c) {
+      const int d0 = c * GK / K;
+      const int d1 = (min(c * GK + GK, KW) - 1) / K;
+      return ((mask >> d0) & ((2u << (d1 - d0)) - 1u)) != 0u;
+    };
+    int steps = __popc(mask) * nk;
+    if constexpr (kFlat) {
+      steps = nk;
+      if (mask != kAllDirs) {
+        steps = 0;
+        for (int c = 0; c < nk; ++c) steps += chunk_live(c);
+      }
+    }
 
     // step i -> (direction d, first channel k0) over the piece's
-    // directions with edges
+    // directions with edges; K5: (0, first flat column) of the i-th live
+    // chunk, the steps taken in order
+    int cursor = -1;
     auto step_at = [&](int i, int& d, int& k0) {
+      if constexpr (kFlat) {
+        do {
+          ++cursor;
+        } while (mask != kAllDirs && !chunk_live(cursor));
+        d = 0;
+        k0 = cursor * GK;
+        return;
+      }
       int j = i / nk;
       k0 = (i - j * nk) * GK;
       unsigned m = mask;
@@ -293,7 +337,8 @@ gather_gemm_kernel(const float* __restrict__ src,
       d = __ffs(m) - 1;
     };
 
-    // W's [GK, BN] chunk of direction d into stage `st` by cp.async
+    // W's [GK, BN] chunk of direction d (K5: rows k0 .. k0 + GK of w) into
+    // stage `st` by cp.async
     auto load_w = [&](int st, int d, int k0) {
       float* bs = smem + st * T::kStageFloats + T::kAFloats;
       if (!kT) {            // B_d[k][n] = w[(d*K + k)*N + n], k-major
@@ -303,7 +348,7 @@ gather_gemm_kernel(const float* __restrict__ src,
             const int n = (i % (BN / 4)) * 4;
             const int kk = k0 + k;
             const int nn = n0 + n;
-            const int bytes = kk < K ? min(max(N - nn, 0), 4) * 4 : 0;
+            const int bytes = kk < KW ? min(max(N - nn, 0), 4) * 4 : 0;
             cp_async16(bs + k * T::kBStride + n,
                        bytes ? w + ((int64_t)d * K + kk) * N + nn : w, bytes);
           }
@@ -311,7 +356,7 @@ gather_gemm_kernel(const float* __restrict__ src,
           for (int i = tid; i < GK * BN; i += kGemmThreads) {
             const int k = i / BN;
             const int n = i % BN;
-            const bool ok = k0 + k < K && n0 + n < N;
+            const bool ok = k0 + k < KW && n0 + n < N;
             cp_async4(bs + k * T::kBStride + n,
                       ok ? w + ((int64_t)d * K + k0 + k) * N + n0 + n : w,
                       ok ? 4 : 0);
@@ -341,18 +386,33 @@ gather_gemm_kernel(const float* __restrict__ src,
       }
     };
 
+    // the lane's column of chunk (d, k0): its direction and its channel of
+    // src, false past the K axis.  K5: flat column k0 + lane, in direction
+    // (k0 + lane) / K
+    auto lane_column = [&](int d, int k0, int& dl, int& kc) {
+      kc = k0 + lane;
+      dl = d;
+      if constexpr (kFlat) {
+        dl = kc / K;
+        kc -= dl * K;
+        return dl < kDirs;
+      }
+      return kc < K;
+    };
+
     // the gather of chunk (d, k0): warp w takes rows w + 8h, lane its
-    // channel k0 + lane.  gather_issue loads the first kEarly edges of all
+    // column k0 + lane.  gather_issue loads the first kEarly edges of all
     // 8 rows at once; gather_finish (after the math) scales and sums them,
     // walks any deeper edges with the 8 rows in step, and stores the chunk
     float raw[kRowsPerWarp][kEarly];
     auto gather_issue = [&](int d, int k0) {
-      const int kc = k0 + lane;
+      int dl, kc;
+      const bool live = lane_column(d, k0, dl, kc);
 #pragma unroll
       for (int h = 0; h < kRowsPerWarp; ++h) {
         const int r = warp + h * kGemmWarps;
         int b = 0, e = 0;
-        if (r < rows && kc < K) slot_range(r * kDirs + d, b, e);
+        if (r < rows && live) slot_range(r * kDirs + dl, b, e);
 #pragma unroll
         for (int u = 0; u < kEarly; ++u) {
           raw[h][u] = b + u < e
@@ -362,7 +422,8 @@ gather_gemm_kernel(const float* __restrict__ src,
     };
     auto gather_finish = [&](int st, int d, int k0) {
       float* as = smem + st * T::kStageFloats;
-      const int kc = k0 + lane;
+      int dl, kc;
+      const bool live = lane_column(d, k0, dl, kc);
       float sum[kRowsPerWarp];
       int bs[kRowsPerWarp], es[kRowsPerWarp];
       int deepest = 0;
@@ -370,7 +431,7 @@ gather_gemm_kernel(const float* __restrict__ src,
       for (int h = 0; h < kRowsPerWarp; ++h) {
         const int r = warp + h * kGemmWarps;
         int b = 0, e = 0;
-        if (r < rows && kc < K) slot_range(r * kDirs + d, b, e);
+        if (r < rows && live) slot_range(r * kDirs + dl, b, e);
         bs[h] = b;
         es[h] = e;
         deepest = max(deepest, e - b);
@@ -412,7 +473,7 @@ gather_gemm_kernel(const float* __restrict__ src,
     auto multiply = [&](int st, int k0) {
       const float* as = smem + st * T::kStageFloats;
       const float* bsm = as + T::kAFloats;
-      const int ksteps = (min(GK, K - k0) + 7) / 8;
+      const int ksteps = (min(GK, KW - k0) + 7) / 8;
 #pragma unroll
       for (int ks = 0; ks < GK / 8; ++ks) {
         if (ks >= ksteps) break;
@@ -504,226 +565,210 @@ gather_gemm_kernel(const float* __restrict__ src,
   }
 }
 
-template <int BN, bool kT>
+template <int BN, bool kT, bool kFlat>
 int launch_gather_gemm(const float* src, const float* w, const int* ptr,
                        const int* idx, const float* scale, float* out, int G,
                        int K, int N, cudaStream_t stream) {
   using T = GemmTile<BN, kT>;
-  const cudaError_t err = cudaFuncSetAttribute(
-      gather_gemm_kernel<BN, kT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      T::kSmem);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  // the opt-in to more than 48 KB of dynamic shared memory, once per
+  // instantiation: a launch makes no other runtime call
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      gather_gemm_kernel<BN, kT, kFlat>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmem);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
   const int vec_w = (kT ? K : N) % 4 == 0 &&
                     reinterpret_cast<uintptr_t>(w) % 16 == 0;
   const dim3 grid((G + GM - 1) / GM, (N + BN - 1) / BN);
-  gather_gemm_kernel<BN, kT><<<grid, kGemmThreads, T::kSmem, stream>>>(
+  gather_gemm_kernel<BN, kT, kFlat><<<grid, kGemmThreads, T::kSmem, stream>>>(
       src, w, ptr, idx, scale, out, G, K, N, vec_w);
   return static_cast<int>(cudaGetLastError());
 }
 
 // the tile's width: the whole N up to 128 columns
-template <bool kT>
+template <bool kT, bool kFlat>
 int gather_gemm(const float* src, const float* w, const int* ptr,
                 const int* idx, const float* scale, float* out, int G, int K,
                 int N, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (N <= 32) {
-    return launch_gather_gemm<32, kT>(src, w, ptr, idx, scale, out, G, K, N, s);
+    return launch_gather_gemm<32, kT, kFlat>(src, w, ptr, idx, scale, out, G,
+                                             K, N, s);
   }
   if (N <= 64) {
-    return launch_gather_gemm<64, kT>(src, w, ptr, idx, scale, out, G, K, N, s);
+    return launch_gather_gemm<64, kT, kFlat>(src, w, ptr, idx, scale, out, G,
+                                             K, N, s);
   }
-  return launch_gather_gemm<128, kT>(src, w, ptr, idx, scale, out, G, K, N, s);
+  return launch_gather_gemm<128, kT, kFlat>(src, w, ptr, idx, scale, out, G,
+                                            K, N, s);
+}
+
+// K2: 4 consecutive floats of x's row from p, as one 16-byte load (kVecX:
+// p 16-byte aligned) or as 4 loads
+template <bool kVecX>
+__device__ __forceinline__ float4 load_x4(const float* p) {
+  if constexpr (kVecX) {
+    return __ldg(reinterpret_cast<const float4*>(p));
+  } else {
+    return make_float4(__ldg(p), __ldg(p + 1), __ldg(p + 2), __ldg(p + 3));
+  }
+}
+
+__device__ __forceinline__ void fma4(float s, float4 r, float4& v) {
+  v.x = fmaf(s, r.x, v.x);
+  v.y = fmaf(s, r.y, v.y);
+  v.z = fmaf(s, r.z, v.z);
+  v.w = fmaf(s, r.w, v.w);
+}
+
+// A (slot, channel) sum of K2, sum_e scale[e] * x[idx[e], k] over the
+// slot's edges in edge order from 0 (one fma per edge), is the same
+// float on every path below.
+
+// K2, a unit of 4 floats that crosses a slot boundary (or ends the
+// stretch): each float over its own slot, the next edge's index read
+// before this edge's sum
+__device__ __forceinline__ void col_crossing(
+    const float* __restrict__ x, const int* eidx, const float* escale,
+    const int* sptr, int e_begin, float* dst, int f, int nflat, int C) {
+  int b[4], e[4], c[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    b[j] = e[j] = c[j] = 0;
+    if (f + j < nflat) {
+      const int sl = (f + j) / C;
+      c[j] = f + j - sl * C;
+      b[j] = sptr[sl] - e_begin;
+      e[j] = sptr[sl + 1] - e_begin;
+    }
+  }
+  float a[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    a[j] = 0.f;
+    int nx = b[j] < e[j] ? eidx[b[j]] : 0;
+    for (int u = b[j]; u < e[j]; ++u) {
+      const float r = __ldg(x + (int64_t)nx * C + c[j]);
+      nx = u + 1 < e[j] ? eidx[u + 1] : 0;
+      a[j] = fmaf(escale[u], r, a[j]);
+    }
+  }
+  if (f + 4 <= nflat) {
+    __stcs(reinterpret_cast<float4*>(dst + f),
+           make_float4(a[0], a[1], a[2], a[3]));
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (f + j < nflat) dst[f + j] = a[j];
+    }
+  }
+}
+
+// K2 over a staged stretch: thread t's units start at f = 4 * (t + i *
+// kColThreads), each stored in one 16-byte store; eidx / escale and the
+// slot pointers in shared memory
+template <bool kVecX>
+__device__ __forceinline__ void col_stream(
+    const float* __restrict__ x, const int* eidx, const float* escale,
+    const int* sptr, int e_begin, float* dst, int nflat, int C) {
+  for (int f = 4 * threadIdx.x; f < nflat; f += 4 * kColThreads) {
+    const int ls = f / C;
+    const int ch = f - ls * C;
+    const bool one_slot = ch + 4 <= C;
+    int b = 0, e = 0;
+    if (one_slot) {
+      b = sptr[ls] - e_begin;
+      e = sptr[ls + 1] - e_begin;
+    }
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 4
+    for (int u = b; u < e; ++u) {
+      fma4(escale[u], load_x4<kVecX>(x + (int64_t)eidx[u] * C + ch), v);
+    }
+    if (one_slot) {
+      __stcs(reinterpret_cast<float4*>(dst + f), v);
+    } else {
+      col_crossing(x, eidx, escale, sptr, e_begin, dst, f, nflat, C);
+    }
+  }
 }
 
 // col[slot, k] = sum_{e in slot} scale[e] * x[col_idx[e], k] over the
-// slots * C buffer ([G, 7C] viewed as [G*7, C])
-__global__ void __launch_bounds__(kColWarps * 32)
+// [slots, C] buffer ([G, 7C] viewed as [G*7, C]).  Block b writes the
+// stretch of slots [b * nslot, (b + 1) * nslot): nslot * C floats that
+// start 16-byte aligned (nslot % 4 == 0, col aligned).  A stretch
+// without edges is a stream of zeros; one whose edges overflow the stage
+// holds a heavy slot, and there the warps share out (slot, 32 channels)
+// pieces, a lane per channel walking the slot's edges in place, so that
+// a heavy slot's channels are walked by many warps at once.  kVecX: C %
+// 4 == 0 and x 16-byte aligned.
+template <bool kVecX>
+__global__ void __launch_bounds__(kColThreads)
 graph_conv_col_kernel(const float* __restrict__ x,
-                      const int* __restrict__ row_ptr,
-                      const int* __restrict__ col_idx,
+                      const int* __restrict__ ptr,
+                      const int* __restrict__ idx,
                       const float* __restrict__ scale,
                       float* __restrict__ col,
-                      int slots, int C) {
-  const int lane = threadIdx.x % 32;
-  const int slot = blockIdx.x * kColWarps + threadIdx.x / 32;
-  if (slot >= slots) return;
-  const int e_begin = row_ptr[slot];
-  const int e_end = row_ptr[slot + 1];
-  float* dst = col + (int64_t)slot * C;
-  for (int k = lane; k < C; k += 32) {
-    float s = 0.f;
-    for (int e = e_begin; e < e_end; ++e) {
-      s += scale[e] * x[(int64_t)col_idx[e] * C + k];
-    }
-    dst[k] = s;
-  }
-}
-
-// ---- K5 -------------------------------------------------------------
-constexpr int PM = 64;              // output rows per block
-constexpr int PN = 64;              // output columns per block
-constexpr int KP = 128;             // one pack of the flat 7C axis
-constexpr int kPackThreads = 256;
-constexpr int kPackWarps = kPackThreads / 32;
-constexpr int kAStride = KP + 4;    // floats per row of the gathered tile
-constexpr int kBStride = PN + 4;    // floats per row of W's pack
-constexpr int kPackSmem = (PM * kAStride + KP * kBStride) * 4;
-constexpr int kQ = KP / 32;         // gather: columns per lane
-constexpr int kRows = 4;            // gather: rows per pass of a warp
-
-static_assert(KP % 32 == 0 && PM == 4 * 16 && PN == 2 * 32,
-              "8 warps of 16 x 32 cover the 64 x 64 tile");
-static_assert(PM % (kRows * kPackWarps) == 0, "whole gather passes");
-static_assert(PM * kBStride <= PM * kAStride, "epilogue fits in As");
-
-using FragA = nvcuda::wmma::fragment<nvcuda::wmma::matrix_a, 16, 16, 8,
-                                     nvcuda::wmma::precision::tf32,
-                                     nvcuda::wmma::row_major>;
-using FragB = nvcuda::wmma::fragment<nvcuda::wmma::matrix_b, 16, 16, 8,
-                                     nvcuda::wmma::precision::tf32,
-                                     nvcuda::wmma::row_major>;
-using FragC = nvcuda::wmma::fragment<nvcuda::wmma::accumulator, 16, 16, 8,
-                                     float>;
-
-// v = hi + lo with both halves TF32 (hi rounded, lo the rounded residual)
-template <typename Frag>
-__device__ __forceinline__ void split_tf32(const Frag& v, Frag& hi,
-                                           Frag& lo) {
-#pragma unroll
-  for (int i = 0; i < v.num_elements; ++i) {
-    const float h = nvcuda::wmma::__float_to_tf32(v.x[i]);
-    hi.x[i] = h;
-    lo.x[i] = nvcuda::wmma::__float_to_tf32(v.x[i] - h);
-  }
-}
-
-// out[G, N] = col(x)[G, 7C] @ w[7C, N], over packs of KP flat columns
-__global__ void __launch_bounds__(kPackThreads)
-graph_conv_packed_kernel(const float* __restrict__ x,
-                         const float* __restrict__ w,
-                         const int* __restrict__ ptr,
-                         const int* __restrict__ idx,
-                         const float* __restrict__ scale,
-                         float* __restrict__ out,
-                         int G, int C, int N) {
-  extern __shared__ __align__(128) float smem[];
-  float* As = smem;                    // [PM][kAStride]
-  float* Bs = smem + PM * kAStride;    // [KP][kBStride]
+                      int slots, int C, int nslot) {
+  __shared__ int sptr[kColSlots + 1];
+  __shared__ int sidx[kEdgeStage];
+  __shared__ float sscale[kEdgeStage];
 
   const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int m0 = blockIdx.x * PM;
-  const int n0 = blockIdx.y * PN;
-  const int wm = (warp % 4) * 16;      // the warp's rows of the tile
-  const int wn = (warp / 4) * 32;      // and its columns
-  const int K = kDirs * C;
+  const int s0 = blockIdx.x * nslot;
+  const int ns = min(nslot, slots - s0);
+  float* dst = col + (int64_t)s0 * C;
+  const int nflat = ns * C;
+  const int e_begin = ptr[s0];
+  const int ne = ptr[s0 + ns] - e_begin;
 
-  FragC acc[2];
-  nvcuda::wmma::fill_fragment(acc[0], 0.f);
-  nvcuda::wmma::fill_fragment(acc[1], 0.f);
-
-  for (int k0 = 0; k0 < K; k0 += KP) {
-    // gather the [PM, KP] pack of the column buffer: lane j of a warp
-    // takes flat columns k0 + j + 32q (q < kQ), each in its own direction,
-    // of kRows rows at once, so its kRows * kQ chains of dependent loads
-    // (slot bounds, then edge, then neighbour) are in flight together
-    for (int r0 = warp; r0 < PM; r0 += kRows * kPackWarps) {
-      int eb[kRows][kQ], ee[kRows][kQ], ch[kQ];
-      int n = 0;
-#pragma unroll
-      for (int q = 0; q < kQ; ++q) {
-        const int kk = k0 + q * 32 + lane;
-        const int d = kk < K ? kk / C : 0;
-        ch[q] = kk - d * C;
-#pragma unroll
-        for (int h = 0; h < kRows; ++h) {
-          const int row = m0 + r0 + h * kPackWarps;
-          eb[h][q] = 0;
-          ee[h][q] = 0;
-          if (row < G && kk < K) {
-            const int slot = row * kDirs + d;
-            eb[h][q] = ptr[slot];
-            ee[h][q] = ptr[slot + 1];
-          }
-          n = max(n, ee[h][q] - eb[h][q]);
-        }
-      }
-      float s[kRows][kQ];
-#pragma unroll
-      for (int h = 0; h < kRows; ++h)
-#pragma unroll
-        for (int q = 0; q < kQ; ++q) s[h][q] = 0.f;
-      for (int t = 0; t < n; ++t) {
-#pragma unroll
-        for (int h = 0; h < kRows; ++h)
-#pragma unroll
-          for (int q = 0; q < kQ; ++q) {
-            const int e = eb[h][q] + t;
-            if (e < ee[h][q]) {
-              s[h][q] += scale[e] * x[(int64_t)idx[e] * C + ch[q]];
-            }
-          }
-      }
-#pragma unroll
-      for (int h = 0; h < kRows; ++h)
-#pragma unroll
-        for (int q = 0; q < kQ; ++q) {
-          As[(r0 + h * kPackWarps) * kAStride + q * 32 + lane] = s[h][q];
-        }
+  if (ne == 0) {
+    int f = 4 * tid;
+    for (; f + 4 <= nflat; f += 4 * kColThreads) {
+      __stcs(reinterpret_cast<float4*>(dst + f),
+             make_float4(0.f, 0.f, 0.f, 0.f));
     }
-    // W's rows k0 .. +KP, columns n0 .. +PN (zeros past the edges)
-    for (int i = tid; i < KP * PN; i += kPackThreads) {
-      const int k = i / PN;
-      const int n = i % PN;
-      const int kk = k0 + k;
-      const int nn = n0 + n;
-      Bs[k * kBStride + n] =
-          (kk < K && nn < N) ? w[(int64_t)kk * N + nn] : 0.f;
-    }
-    __syncthreads();
+    for (int j = 0; j < 4 && f + j < nflat; ++j) dst[f + j] = 0.f;
+    return;
+  }
+  if (ne > kEdgeStage) {
+    const int warp = tid / 32;
+    const int lane = tid % 32;
+    const int pieces = (C + 31) / 32;
+    for (int it = warp; it < ns * pieces; it += kColWarps) {
+      const int sl = it / pieces;
+      const int k = (it - sl * pieces) * 32 + lane;
+      if (k >= C) continue;
+      const int e = __ldg(ptr + s0 + sl + 1);
+      float a = 0.f;
 #pragma unroll 4
-    for (int k = 0; k < KP; k += 8) {
-      FragA a, a_hi, a_lo;
-      nvcuda::wmma::load_matrix_sync(a, As + wm * kAStride + k, kAStride);
-      split_tf32(a, a_hi, a_lo);
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        FragB b, b_hi, b_lo;
-        nvcuda::wmma::load_matrix_sync(b, Bs + k * kBStride + wn + 16 * j,
-                                       kBStride);
-        split_tf32(b, b_hi, b_lo);
-        // the tensor cores' own fp32 accumulation truncates: summed over
-        // the whole 7C axis its bias reaches ~1e-4 at C = 515, so each
-        // 8-deep step starts from zero and is added in IEEE fp32
-        FragC part;
-        nvcuda::wmma::fill_fragment(part, 0.f);
-        nvcuda::wmma::mma_sync(part, a_lo, b_hi, part);
-        nvcuda::wmma::mma_sync(part, a_hi, b_lo, part);
-        nvcuda::wmma::mma_sync(part, a_hi, b_hi, part);
-#pragma unroll
-        for (int i = 0; i < part.num_elements; ++i) acc[j].x[i] += part.x[i];
+      for (int u = __ldg(ptr + s0 + sl); u < e; ++u) {
+        a = fmaf(__ldg(scale + u), __ldg(x + (int64_t)__ldg(idx + u) * C + k),
+                 a);
       }
+      dst[(int64_t)sl * C + k] = a;
     }
-    __syncthreads();
+    return;
   }
-
-  // stage the tile through shared memory and store its valid part
-  float* Cs = smem;                    // [PM][kBStride]
-#pragma unroll
-  for (int j = 0; j < 2; ++j) {
-    nvcuda::wmma::store_matrix_sync(Cs + wm * kBStride + wn + 16 * j, acc[j],
-                                    kBStride, nvcuda::wmma::mem_row_major);
+  // the stretch's slot pointers and edge range, once
+  for (int i = tid; i <= ns; i += kColThreads) {
+    cp_async4(sptr + i, ptr + s0 + i, 4);
   }
+  for (int i = tid; i < ne; i += kColThreads) {
+    cp_async4(sidx + i, idx + e_begin + i, 4);
+    cp_async4(sscale + i, scale + e_begin + i, 4);
+  }
+  cp_async_commit();
+  cp_async_wait_all();
   __syncthreads();
-  for (int i = tid; i < PM * PN; i += kPackThreads) {
-    const int row = m0 + i / PN;
-    const int nn = n0 + i % PN;
-    if (row < G && nn < N) {
-      out[(int64_t)row * N + nn] = Cs[(i / PN) * kBStride + i % PN];
-    }
-  }
+  col_stream<kVecX>(x, sidx, sscale, sptr, e_begin, dst, nflat, C);
+}
+
+// K2's stretch for channel width C over `slots` slots on `sms` SMs: about
+// kColFloats floats of col, few enough slots that every SM gets two
+// stretches, at most a tile's slots, a multiple of 4 slots
+int col_stretch_slots(int C, int slots, int sms) {
+  const int s = min(kColFloats / C, slots / (2 * sms)) / 4 * 4;
+  return s < 4 ? 4 : (s > kColSlots ? kColSlots : s);
 }
 
 }  // namespace
@@ -732,18 +777,34 @@ extern "C" int graph_conv_fwd(const float* x, const float* w,
                               const int* row_ptr, const int* col_idx,
                               const float* scale, float* out, int G, int C,
                               int Cout, void* stream) {
-  return gather_gemm<false>(x, w, row_ptr, col_idx, scale, out, G, C, Cout,
-                            stream);
+  return gather_gemm<false, false>(x, w, row_ptr, col_idx, scale, out, G, C,
+                                   Cout, stream);
 }
 
+// col [G, 7C] must be 16-byte aligned (a fresh allocation is)
 extern "C" int graph_conv_col(const float* x, const int* row_ptr,
                               const int* col_idx, const float* scale,
                               float* col, int G, int C, void* stream) {
+  if (reinterpret_cast<uintptr_t>(col) % 16 != 0) {
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  }
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  static const int sms = [] {
+    int dev = 0, n = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    return n > 0 ? n : 1;
+  }();
   const int slots = G * kDirs;
-  const int blocks = (slots + kColWarps - 1) / kColWarps;
-  graph_conv_col_kernel<<<blocks, kColWarps * 32, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-      x, row_ptr, col_idx, scale, col, slots, C);
+  const int nslot = col_stretch_slots(C, slots, sms);
+  const int blocks = (slots + nslot - 1) / nslot;
+  if (C % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0) {
+    graph_conv_col_kernel<true><<<blocks, kColThreads, 0, s>>>(
+        x, row_ptr, col_idx, scale, col, slots, C, nslot);
+  } else {
+    graph_conv_col_kernel<false><<<blocks, kColThreads, 0, s>>>(
+        x, row_ptr, col_idx, scale, col, slots, C, nslot);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -753,8 +814,8 @@ extern "C" int graph_conv_bwd_dx(const float* dout, const float* w,
                                  const int* trow_ptr, const int* t_row,
                                  const float* t_scale, float* dx, int G,
                                  int C, int Cout, void* stream) {
-  return gather_gemm<true>(dout, w, trow_ptr, t_row, t_scale, dx, G, Cout, C,
-                           stream);
+  return gather_gemm<true, false>(dout, w, trow_ptr, t_row, t_scale, dx, G,
+                                  Cout, C, stream);
 }
 
 // K5: arguments as for graph_conv_fwd
@@ -762,13 +823,6 @@ extern "C" int graph_conv_fwd_packed(const float* x, const float* w,
                                      const int* row_ptr, const int* col_idx,
                                      const float* scale, float* out, int G,
                                      int C, int Cout, void* stream) {
-  const cudaError_t err = cudaFuncSetAttribute(
-      graph_conv_packed_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kPackSmem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((G + PM - 1) / PM, (Cout + PN - 1) / PN);
-  graph_conv_packed_kernel<<<grid, kPackThreads, kPackSmem,
-                             static_cast<cudaStream_t>(stream)>>>(
-      x, w, row_ptr, col_idx, scale, out, G, C, Cout);
-  return static_cast<int>(cudaGetLastError());
+  return gather_gemm<false, true>(x, w, row_ptr, col_idx, scale, out, G, C,
+                                  Cout, stream);
 }

@@ -25,7 +25,7 @@ import numpy as np
 
 from .metrics import evaluation
 from .utils import mesh as mesh_utils
-from .utils.device import resolve_device
+from .utils.device import resolve_device, use_fp32_math
 
 
 def meshes_to_pointclouds(paths, n_points: int, seed: int = 0):
@@ -60,6 +60,7 @@ def main(argv=None):
     args = p.parse_args(argv)
 
     device = resolve_device(args.device)
+    use_fp32_math()
     s_paths = sorted(glob.glob(args.samples))
     r_paths = sorted(glob.glob(args.reference))
     if not s_paths or not r_paths:

@@ -19,7 +19,7 @@ whose ``.obj`` exists are skipped.  ``OCTFUSION_CONV_KPACK=1`` runs the
 depth-``depth_stop`` graph convs through the packed kernel K5.
 
 Runs on the card unless ``--device cpu``; without a card the default
-raises.  Prints ``[*] wrote <path>`` per mesh, then one line with the
+raises.  Computes in fp32 with TF32 off, as the reference.  Prints ``[*] wrote <path>`` per mesh, then one line with the
 stage seconds per shape, the graph-conv kernels' launches and the peak
 memory.
 """
@@ -42,7 +42,7 @@ from .ops import graph_conv_cuda
 from .utils import ckpt as ckpt_lib
 from .utils import params as params_lib
 from .utils import sdf as sdf_utils
-from .utils.device import resolve_device
+from .utils.device import resolve_device, use_fp32_math
 
 # the ShapeNet class labels of the JAX package's data/shapenet.py
 CATEGORY_5_TO_LABEL = {"airplane": 0, "car": 1, "chair": 2, "table": 3,
@@ -114,6 +114,7 @@ def _peak_memory(dev) -> str:
 def main(argv=None):
     args = parse_args(argv)
     dev = resolve_device(args.device)
+    use_fp32_math()
     cfg = _configure(args)
     run_dir = os.path.join(cfg.train.logs_dir, cfg.train.name)
     rdir = os.path.join(run_dir, f"results_{args.category}")

@@ -32,7 +32,7 @@ from ..octree.dual_graph import (GraphSpec, build_dual_graph,
                                  with_packed_levels)
 from ..utils import mesh as mesh_utils
 from ..utils import sdf as sdf_utils
-from ..utils.device import resolve_device
+from ..utils.device import resolve_device, use_fp32_math
 from .common import batch_to_graph
 
 
@@ -66,6 +66,7 @@ class UnionSolver:
         self.cfg = cfg
         self.stage_flag = stage_flag
         self.device = resolve_device(device)
+        use_fp32_math()
         d = cfg.diffusion
         m = cfg.model
         self.union_cfg = UnionConfig(

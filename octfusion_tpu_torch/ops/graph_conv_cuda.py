@@ -20,14 +20,14 @@ neighbours followed by the trailing GEMM.  Four hand-written CUDA kernels
   (``GraphLevel.csr_t``), forming the product with ``W_d^T`` in its own
   body as the TPU kernel does;
 * K5 ``graph_conv_fwd_packed`` (replaces ``_fwd_kernel_packed``): K1's
-  function on the tensor cores, forward only, for the levels that
+  function, forward only, for the levels that
   ``dual_graph.with_packed_levels`` marks (sampling graphs).  The TPU
-  kernel merges 4 gathered blocks into one matrix-unit issue; K5 cuts the
-  flat 7C axis of the column buffer into packs of 128 columns, gathers
-  each pack from the CSR into shared memory and multiplies it by W's
-  matching rows in TF32 WMMA fragments with the 3xTF32 split (fp32
-  accuracy).  Like the JAX ``graph_conv_packed`` it has no backward: where
-  autograd would need one it raises (:func:`packed_forward`).
+  kernel merges 4 gathered blocks into one matrix-unit issue, a reason a
+  GPU does not have; K5 is K1's template walking the flat 7C axis of the
+  column buffer in chunks of 32 columns (a chunk may span directions), so
+  a ragged or narrow C pads only the last chunk, not every direction's.
+  Like the JAX ``graph_conv_packed`` it has no backward: where autograd
+  would need one it raises (:func:`packed_forward`).
 
 :class:`GraphConvFunction` ties them together as the JAX package's
 ``custom_vjp`` does (``graph_conv_kernel.py:259-287``); ``dW``'s product
@@ -37,18 +37,19 @@ there.
 The TPU kernels turn the gathers into one-hot matmuls over a descriptor
 plan because the TPU has no fast per-row gather.  Hopper has one, so the
 CUDA kernels read the CSR the sorted edge list already implies
-(``GraphLevel.csr``) or its transpose.  K1 and K3 share one gather-GEMM
-template: a block stages its 64-row tile's CSR slice in shared memory
-once (in pieces of 1024 edges where it is longer), gathers [64, 32]
-chunks of the column buffer from it (the neighbour loads of the next
-chunk and W's next chunk, by ``cp.async``, in flight under the math) and
-multiplies each by up to 128 columns of W on the tensor cores in the
+(``GraphLevel.csr``) or its transpose.  K1, K3 and K5 share one
+gather-GEMM template: a block stages its 64-row tile's CSR slice in
+shared memory once (in pieces of 1024 edges where it is longer), gathers
+[64, 32] chunks of the column buffer from it (the neighbour loads of the
+next chunk and W's next chunk, by ``cp.async``, in flight under the math)
+and multiplies each by up to 128 columns of W on the tensor cores in the
 3xTF32 split, which keeps fp32 accuracy.  What bounds them on an H100:
 the ``mma.sync`` TF32 rate with the split's extra instructions, and the
 gather and W staging, which overlap the math only in part.  K2 is bound
-by its bytes: it reads E x C and writes G x 7C floats, a warp per (row,
-dir) slot with lanes on channels.  K5 keeps a gather that walks the CSR
-per pack (no staging, no pipelining); wgmma, TMA and bf16 are later work.
+by its bytes, most of them the G x 7C write: a block owns a stretch of
+whole slots, stages its CSR slice once, and streams the stretch out in
+16-byte stores, 4 channels a thread (several slots a warp at a narrow
+C).  wgmma, TMA and bf16 are later work.
 
 Beside each kernel sits its plain PyTorch version (gather, scale,
 ``index_add_``; for K1 and K3 a GEMM).  The wrappers take the plain

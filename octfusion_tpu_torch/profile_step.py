@@ -37,6 +37,7 @@ from torch.profiler import ProfilerActivity, profile
 from .config import Config, load_config
 from .models.union_solver import UnionSolver
 from .octree.dual_graph import with_packed_levels
+from .utils.device import use_fp32_math
 from .utils.shapes import lumpy_spheres
 
 TOP = 8     # kernels listed per stage
@@ -136,8 +137,7 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_step: no CUDA device")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    use_fp32_math()
     dev = torch.device("cuda")
     result = (_train_step if args.train else _denoise_steps)(dev, args.steps)
     for stage, r in result.items():

@@ -1,5 +1,5 @@
-"""The device an entry point runs on: the card unless the caller asks for
-the CPU."""
+"""The device an entry point runs on (the card unless the caller asks for
+the CPU) and the precision it computes in (fp32, as the reference)."""
 
 from __future__ import annotations
 
@@ -16,3 +16,11 @@ def resolve_device(device) -> torch.device:
             f"device {str(device)!r} needs an NVIDIA GPU and none is "
             "available; pass device='cpu' to run on the CPU")
     return dev
+
+
+def use_fp32_math() -> None:
+    """Float32 matmuls and convolutions in full fp32 on the card, as the
+    reference computes (``compute_dtype: float32``): PyTorch lets cuDNN
+    run a float32 convolution in TF32 unless told otherwise."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False

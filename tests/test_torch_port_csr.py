@@ -1,10 +1,12 @@
-"""The CSR contract that the graph conv's K1 / K3 kernel
-(``gather_gemm_kernel`` in ``octfusion_tpu_torch/csrc/graph_conv.cu``)
-relies on, on the CPU: ``csr_of_edges`` / ``csr_t_of_edges`` against
+"""The CSR contract that the graph conv's K1 / K3 / K5 kernel
+(``gather_gemm_kernel`` in ``octfusion_tpu_torch/csrc/graph_conv.cu``) and
+its K2 rely on, on the CPU: ``csr_of_edges`` / ``csr_t_of_edges`` against
 brute-force slot counts, each 64-row tile's edges one contiguous range,
-the synthetic edge-case level's cases present, and the kernel's walk
-(tile edge ranges in staging pieces, clamped slot ranges, directions
-without edges skipped) equal to the plain versions."""
+the synthetic edge-case level's cases present, the kernel's walk (tile
+edge ranges in staging pieces, clamped slot ranges, directions or K5's
+flat chunks without edges skipped, the k8 tail) equal to the plain
+versions, and K2's stream (aligned stretches of slots, 4-float units,
+staged or in-place edges) equal to its plain version."""
 
 import numpy as np
 import pytest
@@ -80,10 +82,12 @@ def test_synthetic_level_has_its_cases():
     assert ptr[s] < cut < ptr[s + 1]
 
 
-@pytest.mark.parametrize("c,cout", [(31, 24), (131, 128), (8, 72)])
-@pytest.mark.parametrize("kernel", ["k1", "k3"])
+@pytest.mark.parametrize("c,cout", [(31, 24), (131, 128), (8, 72),
+                                    (6, 40), (515, 512)])
+@pytest.mark.parametrize("kernel", ["k1", "k3", "k5"])
 def test_walk_matches_plain(kernel, c, cout):
-    """The kernels' tiling walk (``cases.walk_reference``) gives the
+    """The kernels' tiling walk (``cases.walk_reference``; K5 over the
+    flat 7C axis, chunks across up to six directions at C = 6) gives the
     plain versions' result on the synthetic level and a tiny-graph
     level: float64 walk against the fp32 plain version, rtol = atol =
     1e-4."""
@@ -92,11 +96,13 @@ def test_walk_matches_plain(kernel, c, cout):
         g = lvl.g_cap
         edges = (lvl.edge_row, lvl.edge_col, lvl.edge_dir, lvl.edge_scale)
         w = (rng.normal(size=(N * c, cout)) / np.sqrt(N * c)).astype(np.float32)
-        if kernel == "k1":
+        if kernel in ("k1", "k5"):
             x = rng.normal(size=(g, c)).astype(np.float32)
-            got = cases.walk_reference(x, w, lvl.csr(), g, transposed=False)
-            ref = graph_conv_cuda.graph_conv_plain(torch.tensor(x),
-                                                   torch.tensor(w), *edges)
+            got = cases.walk_reference(x, w, lvl.csr(), g, transposed=False,
+                                       flat=kernel == "k5")
+            plain = (graph_conv_cuda.graph_conv_plain if kernel == "k1"
+                     else graph_conv_cuda.graph_conv_packed_plain)
+            ref = plain(torch.tensor(x), torch.tensor(w), *edges)
         else:
             dout = rng.normal(size=(g, cout)).astype(np.float32)
             got = cases.walk_reference(dout, w, lvl.csr_t(), g, transposed=True)
@@ -105,3 +111,33 @@ def test_walk_matches_plain(kernel, c, cout):
         assert np.abs(got).max() > 0
         np.testing.assert_allclose(got, ref.double().numpy(), rtol=1e-4,
                                    atol=1e-4)
+
+
+@pytest.mark.parametrize("c", [3, 6, 8, 131])
+def test_col_stream_matches_plain(c):
+    """K2's stream (``cases.col_stream_reference``: stretches of whole
+    slots that start 16-byte aligned, zeros, staged 4-float units or
+    in-place (slot, 32-channel) pieces, every float written once) gives
+    the plain column buffer on the synthetic level and a tiny-graph
+    level: float64 against fp32, rtol = atol = 1e-5.  At C = 3 every unit
+    crosses a slot, at C = 8 none does; the synthetic level's empty tiles
+    give stretches of zeros, its 2500-edge slot a stretch read in place."""
+    rng = np.random.RandomState(c)
+    for lvl in (cases.synthetic_level(), cases.tiny_graph().level(4)):
+        g = lvl.g_cap
+        x = rng.normal(size=(g, c)).astype(np.float32)
+        got, stats = cases.col_stream_reference(x, lvl.csr(), g)
+        ref = graph_conv_cuda.graph_conv_col_plain(
+            torch.tensor(x), lvl.edge_row, lvl.edge_col, lvl.edge_dir,
+            lvl.edge_scale)
+        assert np.abs(got).max() > 0
+        np.testing.assert_allclose(got, ref.double().numpy(), rtol=1e-5,
+                                   atol=1e-5)
+        if c == 3:
+            assert stats["crossing"] == stats["units"]
+        elif c == 8:
+            assert stats["crossing"] == 0
+        else:
+            assert stats["crossing"] > 0
+        if g == 1000:
+            assert stats["in_place"] >= 1 and stats["zeros"] >= 1

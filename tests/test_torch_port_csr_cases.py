@@ -1,6 +1,6 @@
-"""Graph levels for the edge cases of the CUDA graph conv's K1 / K3, shared
-by the card-only kernel tests and the CPU tests of the CSR contract (no
-JAX here).
+"""Graph levels for the edge cases of the CUDA graph conv's K1 / K3 / K5
+and K2, shared by the card-only kernel tests and the CPU tests of the CSR
+contract (no JAX here).
 
 ``synthetic_level`` builds a level with: one (row, dir) slot and one
 (col, dir) slot of thousands of edges, so the edge range of a 64-row tile
@@ -9,7 +9,9 @@ row tiles without any edge (no edge has its row or its column there); a
 tile of many light slots whose range straddles a staging piece; padding
 edges (``row = col = G``, as a graph level pads); and G not a multiple of
 64.  ``tiny_graph`` is a dual graph at ``configs/synthetic_tiny.yaml``'s
-caps.  ``walk_reference`` is the kernels' tiling walk in numpy."""
+caps.  ``walk_reference`` is the gather-GEMM kernels' tiling walk in numpy
+(K1 / K3 by direction, K5 over the flat 7C axis), ``col_stream_reference``
+K2's stretches and 4-float units."""
 
 from __future__ import annotations
 
@@ -27,6 +29,10 @@ from octfusion_tpu_torch.octree.split_codec import split2octree_small
 N_EDGE_TYPE = 7
 TILE_ROWS = 64        # GM of gather_gemm_kernel (csrc/graph_conv.cu)
 EDGE_STAGE = 1024     # its kEdgeStage: edges staged per piece
+CHUNK = 32            # its GK: columns of a gathered chunk
+COL_FLOATS = 8192     # K2's kColFloats: col floats a block aims at
+COL_SLOTS = N_EDGE_TYPE * TILE_ROWS   # K2's kColSlots
+H100_SMS = 132        # the SMs K2 shares its stretches over
 HEAVY_ROW_SLOT = (5, 2)      # (row, dir) with `heavy` edges
 HEAVY_COL_SLOT = (300, 4)    # (col, dir) with `heavy_t` edges
 EMPTY_ROWS = (64, 192)       # tiles 1-2: no edge's row or col in here
@@ -113,14 +119,15 @@ def tile_ranges(row_ptr: np.ndarray, g: int):
 
 
 def walk_reference(src: np.ndarray, w: np.ndarray, csr, g: int,
-                   transposed: bool) -> np.ndarray:
+                   transposed: bool, flat: bool = False) -> np.ndarray:
     """``gather_gemm_kernel``'s walk in float64: per 64-row tile its edge
     range in pieces of ``EDGE_STAGE`` edges; per piece and direction with
     edges in it, the slots' ranges clamped to the piece, gathered and
     multiplied by ``B_d`` (``w``'s rows of direction d, or for K3 its
     block of rows transposed), every piece's product added into the tile.
-    ``src`` [G, K], ``csr`` as ``csr_of_edges`` (K1) or ``csr_t_of_edges``
-    (K3)."""
+    ``flat`` (K5): per piece, the flat 7C axis in chunks of ``CHUNK``
+    columns instead (:func:`_flat_piece`).  ``src`` [G, K], ``csr`` as
+    ``csr_of_edges`` (K1, K5) or ``csr_t_of_edges`` (K3)."""
     ptr, idx, scale = (t.cpu().numpy() for t in csr)
     src = src.astype(np.float64)
     w = w.astype(np.float64)
@@ -131,6 +138,10 @@ def walk_reference(src: np.ndarray, w: np.ndarray, csr, g: int,
         slots = ptr[m0 * N_EDGE_TYPE:(m0 + rows) * N_EDGE_TYPE + 1]
         for pe in range(e0, e1, EDGE_STAGE):
             local = np.clip(slots - pe, 0, min(EDGE_STAGE, e1 - pe))
+            if flat:
+                out[m0:m0 + rows] += _flat_piece(src, w, idx[pe:],
+                                                 scale[pe:], local, rows)
+                continue
             for d in range(N_EDGE_TYPE):
                 b = local[d:rows * N_EDGE_TYPE:N_EDGE_TYPE]
                 e = local[d + 1:rows * N_EDGE_TYPE + 1:N_EDGE_TYPE]
@@ -144,3 +155,101 @@ def walk_reference(src: np.ndarray, w: np.ndarray, csr, g: int,
                       else w[d * k:(d + 1) * k])
                 out[m0:m0 + rows] += a @ bd
     return out
+
+
+def _flat_piece(src, w, idx, scale, local, rows):
+    """One piece of K5's walk: ``local`` the tile's slot pointers clamped
+    to the piece (offsets into ``idx`` / ``scale``).  Chunk k0 gives lane
+    j the flat column k0 + j, direction d = (k0 + j) // C and channel
+    (k0 + j) - d*C, which reads slot (row, d); a chunk whose directions
+    have no edge in the piece is skipped, and only the chunk's 8-deep
+    steps that reach a column below 7C are multiplied (W's rows past 7C
+    are zeros)."""
+    k = src.shape[1]
+    kw = N_EDGE_TYPE * k
+    b = local[:-1].reshape(rows, N_EDGE_TYPE)
+    e = local[1:].reshape(rows, N_EDGE_TYPE)
+    live = (e > b).any(axis=0)
+    slot_sum = np.zeros((rows, N_EDGE_TYPE, k))      # each (row, d) slot
+    for r, d in zip(*np.nonzero(e > b)):
+        es = slice(b[r, d], e[r, d])
+        slot_sum[r, d] = scale[es] @ src[idx[es]]
+    out = np.zeros((rows, w.shape[1]))
+    for k0 in range(0, kw, CHUNK):
+        col = k0 + np.arange(CHUNK)
+        ok = col < kw
+        d = col // k
+        ch = col - d * k
+        if not live[d[ok]].any():
+            continue
+        a = np.zeros((rows, CHUNK))
+        a[:, ok] = slot_sum[:, d[ok], ch[ok]]
+        steps = -(-min(CHUNK, kw - k0) // 8)
+        wc = np.zeros((CHUNK, w.shape[1]))
+        wc[:min(CHUNK, kw - k0)] = w[k0:k0 + CHUNK]
+        out += a[:, :8 * steps] @ wc[:8 * steps]
+    return out
+
+
+def col_stretch_slots(c: int, slots: int, sms: int = H100_SMS) -> int:
+    """K2's stretch (``col_stretch_slots`` in ``csrc/graph_conv.cu``):
+    about ``COL_FLOATS`` floats, few enough slots that each of ``sms`` SMs
+    gets two stretches, at most ``COL_SLOTS`` slots, a multiple of 4."""
+    return min(max(min(COL_FLOATS // c, slots // (2 * sms)) // 4 * 4, 4),
+               COL_SLOTS)
+
+
+def col_stream_reference(x: np.ndarray, csr, g: int):
+    """K2's stream in float64 -> (col [G, 7C], stats).  Block b owns the
+    slots [b*S, (b+1)*S) (S = ``col_stretch_slots``), whose floats start
+    16-byte aligned.  A stretch without edges is zeros; one whose edge
+    range overflows ``EDGE_STAGE`` is shared out as (slot, 32-channel)
+    pieces, one float a lane; any other is staged and cut into units of 4
+    consecutive floats: 4 channels of one slot, or floats that each take
+    their own slot where the unit crosses a slot boundary or ends the
+    stretch.  Every float of ``col`` is written exactly once.  ``stats``:
+    units in all, units that cross a slot, stretches of zeros, stretches
+    read in place."""
+    ptr, idx, scale = (t.cpu().numpy() for t in csr)
+    x = x.astype(np.float64)
+    c = x.shape[1]
+    slots = g * N_EDGE_TYPE
+    per = col_stretch_slots(c, slots)
+    out = np.zeros(slots * c)
+    written = np.zeros(slots * c, np.int64)
+    stats = {"units": 0, "crossing": 0, "zeros": 0, "in_place": 0}
+
+    def slot_sum(sl):
+        es = slice(ptr[sl], ptr[sl + 1])
+        return scale[es] @ x[idx[es]]
+
+    for s0 in range(0, slots, per):
+        ns = min(per, slots - s0)
+        assert s0 * c % 4 == 0                  # a 16-byte aligned start
+        e0, e1 = ptr[s0], ptr[s0 + ns]
+        if e1 == e0:
+            stats["zeros"] += 1
+            written[s0 * c:(s0 + ns) * c] += 1
+            continue
+        if e1 - e0 > EDGE_STAGE:                # (slot, 32 channels) pieces
+            stats["in_place"] += 1
+            for sl in range(s0, s0 + ns):
+                for k0 in range(0, c, CHUNK):
+                    ks = slice(sl * c + k0, sl * c + min(k0 + CHUNK, c))
+                    out[ks] = slot_sum(sl)[k0:k0 + CHUNK]
+                    written[ks] += 1
+            continue
+        sums = np.stack([slot_sum(sl) for sl in range(s0, s0 + ns)])
+        f = np.arange(0, ns * c, 4)             # each unit's first float
+        one_slot = f % c + 4 <= c
+        elems = f[:, None] + np.arange(4)
+        valid = elems < ns * c
+        assert valid[one_slot].all()
+        sl, ch = elems // c, elems % c
+        assert (sl[one_slot] == (f[one_slot] // c)[:, None]).all()
+        np.add.at(written, s0 * c + elems[valid], 1)
+        out[s0 * c + elems[valid]] = sums[sl[valid], ch[valid]]
+        stats["units"] += f.size
+        stats["crossing"] += int((~one_slot).sum())
+    assert (written == 1).all()
+    return out.reshape(g, N_EDGE_TYPE * c), stats

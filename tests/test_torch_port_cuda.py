@@ -1,10 +1,11 @@
 """Card-only tests of the port's CUDA kernels against their plain PyTorch
 versions: the graph conv's K1 forward, K2 column buffer, K3 input
-gradient (K1 and K3 also on the edge-case level of
-``test_torch_port_csr_cases`` and at ragged widths) and K5 packed forward
-(with its autograd guard), the
-differentiable graph conv on the card, and the Chamfer kernel K4 with the
-evaluation's tile loop.  They skip without a GPU; on
+gradient and K5 packed forward (all four also on the edge-case level of
+``test_torch_port_csr_cases`` and at ragged widths; K5 with its autograd
+guard; K2 also on an x that is not 16-byte aligned), the
+differentiable graph conv on the card, the Chamfer kernel K4 with the
+evaluation's tile loop, and the solver's fp32 precision (the lr denoise
+step, card against CPU).  They skip without a GPU; on
 one, run them with
 
     python -m pytest tests/test_torch_port_cuda.py --noconftest -m cuda -q
@@ -17,6 +18,8 @@ import pytest
 import torch
 
 import test_torch_port_csr_cases as csr_cases
+from octfusion_tpu_torch.config import Config
+from octfusion_tpu_torch.models.union_solver import UnionSolver
 from octfusion_tpu_torch.octree.dual_graph import (build_dual_graph,
                                                    with_packed_levels)
 from octfusion_tpu_torch.octree.octree import OctreeSpec
@@ -103,15 +106,29 @@ def test_graph_conv_dispatch_and_cpu_parity(cuda):
     torch.testing.assert_close(got.cpu(), ref, rtol=TOL, atol=TOL)
 
 
+def _unaligned(x):
+    """``x``'s values in a contiguous tensor whose data starts 4 bytes past
+    a 16-byte boundary."""
+    buf = torch.empty(x.numel() + 4, device=x.device)
+    off = 1 if buf.data_ptr() % 16 == 0 else 0
+    out = buf[off:off + x.numel()].view(x.shape)
+    out.copy_(x)
+    assert out.data_ptr() % 16 != 0
+    return out
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("c,cout", [(8, 128), (133, 128), (260, 256),
                                     (772, 256), (31, 24), (515, 512),
-                                    (131, 131), (516, 512), (48, 64)])
+                                    (131, 131), (516, 512), (48, 64),
+                                    (3, 16), (4, 8), (6, 128)])
 def test_backward_kernels_match_plain(cuda, c, cout):
     """K2 (column buffer) and K3 (dx over the transposed CSR) against
     their plain versions at levels 4-6 and on the synthetic edge-case
     level (K3's output width is C: 8, 31 and 48 take its 32- and
-    64-column tiles; C' = 131 its 4-byte-copied W^T)."""
+    64-column tiles; C' = 131 its 4-byte-copied W^T).  K2 at C = 3, 4, 6
+    packs many slots into a warp, and at every C also runs on an x that
+    is not 16-byte aligned (its 4-float loads, not float4)."""
     g = _graph(cuda, seed=4)
     gen = torch.Generator(device=cuda).manual_seed(c)
     for lvl in _levels(g, cuda):
@@ -128,9 +145,11 @@ def test_backward_kernels_match_plain(cuda, c, cout):
             n0["graph_conv_bwd_dx"] + 1
         col_ref = graph_conv_cuda.graph_conv_col_plain(x, *edges)
         dx_ref = graph_conv_cuda.graph_conv_bwd_dx_plain(dout, w, *edges)
+        col_u = graph_conv_cuda.graph_conv_col(_unaligned(x), *lvl.csr())
         torch.cuda.synchronize()
         torch.testing.assert_close(col, col_ref, rtol=TOL, atol=TOL)
         torch.testing.assert_close(dx, dx_ref, rtol=TOL, atol=TOL)
+        torch.testing.assert_close(col_u, col, rtol=0, atol=0)
 
 
 @pytest.mark.cuda
@@ -174,14 +193,18 @@ def test_kernel_rejects_bad_inputs(cuda):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("c,cout", [(6, 128), (131, 128), (259, 256),
-                                    (515, 512), (38, 32), (128, 3)])
+                                    (515, 512), (38, 32), (128, 3),
+                                    (31, 24), (64, 48), (6, 3)])
 def test_packed_kernel_matches_plain_and_k1(cuda, c, cout):
-    """K5 (3xTF32 tensor cores) against its plain version and K1 at levels
-    4-6; ragged C (131, 259, 515) cross the 128-column packs."""
+    """K5 (the flat 7C walk, 3xTF32 tensor cores) against its plain
+    version and K1 at levels 4-6 and on the synthetic edge-case level
+    (slots of >= 2000 edges walked in staging pieces, empty row tiles,
+    G = 1000); ragged C (131, 259, 515) put chunks across directions, C =
+    6 up to six directions in one chunk; C' = 3, 24, 48 and >= 128 take
+    every output-column tile."""
     g = _graph(cuda, seed=7)
     gen = torch.Generator(device=cuda).manual_seed(c + 1)
-    for d in (4, 5, 6):
-        lvl = g.level(d)
+    for lvl in _levels(g, cuda):
         x = torch.randn(lvl.g_cap, c, device=cuda, generator=gen)
         w = torch.randn(7 * c, cout, device=cuda, generator=gen) / (7 * c) ** 0.5
         csr = lvl.csr()
@@ -309,3 +332,43 @@ def test_pairwise_on_the_card_matches_cpu(cuda):
     ref = distances.pairwise_cd_emd(s, r, batch=4, row_block=2)
     np.testing.assert_allclose(got[0], ref[0], **TOL_CHAMFER)
     np.testing.assert_allclose(got[1], ref[1], rtol=2e-3)
+
+
+@pytest.mark.cuda
+def test_solver_computes_lr_step_in_fp32():
+    """The repaired fault: ``UnionSolver`` left cuDNN free to run the lr
+    U-Net's conv3d in TF32.  With both TF32 flags on before it is built
+    (the test sets nothing off), the full-width lr denoise step on the card
+    equals the CPU's within fp32 rounding: max error <= 1e-4 of the
+    output's max |value|, a bound TF32 convolutions do not meet."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernel; no CPU mode)")
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = True
+        torch.backends.cudnn.allow_tf32 = True
+        cfg = Config()
+        torch.manual_seed(0)
+        cpu = UnionSolver(cfg, device="cpu")
+        gen = torch.Generator().manual_seed(1)
+        with torch.no_grad():
+            for p in cpu.df.unet_lr.parameters():    # no zero layer
+                p.add_(0.02 * torch.randn(p.shape, generator=gen))
+        card = UnionSolver(cfg, device="cuda")
+        card.df.load_state_dict(cpu.df.state_dict())
+        assert not torch.backends.cuda.matmul.allow_tf32
+        assert not torch.backends.cudnn.allow_tf32
+        s = 2**cfg.model.full_depth
+        x = torch.randn(1, s, s, s, 8, generator=gen)
+        t = cpu.log_snr(torch.tensor([0.5]))
+        with torch.no_grad():
+            ref = cpu.df("lr", x, t, x_self_cond=torch.zeros_like(x))
+            got = card.df("lr", x.cuda(), t.cuda(),
+                          x_self_cond=torch.zeros_like(x).cuda()).cpu()
+        scale = ref.abs().max().item()
+        assert scale > 0
+        torch.testing.assert_close(got, ref, rtol=0, atol=1e-4 * scale)
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
