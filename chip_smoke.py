@@ -53,14 +53,23 @@ input gradient and K5 packed forward; the Chamfer kernel K4):
    checkpoint recomputes included) and K2 launches = K3 launches = the
    backward calls of the graph conv; it prints the median ms/step after 2
    warm-up steps, the stage split and the peak memory;
-9. K4 vs plain: the 2048-point evaluation protocol at B = 16, 64 and 256
-   pairs, the ragged B = 2, N = 700, M = 1100, and near-duplicate clouds
-   (a and a + 1e-3 noise), all in the unit cube: the kernel against its
-   plain version (rtol 1e-4, atol 1e-6), with kernel / plain / library
-   (``torch.cdist`` squared and both minima, a yardstick the port never
-   calls) / bound ms and the share of the bound; then CD (K4), EMD fp32
-   and EMD bf16-stored pairs/s at B = 16, 64, 256, and bf16 vs fp32 EMD
-   at B = 16 (rtol 2.5e-3);
+9. K4 vs plain (run first, right after the build: its device times come
+   from ``torch.profiler`` traces, which a fresh process takes reliably):
+   the 2048-point evaluation protocol at B = 16, 32 (the evaluation's
+   launch, phase 10's tiles), 64 and 256 pairs, the ragged B = 2, N = 700,
+   M = 1100, near-duplicate clouds (a and a + 1e-3 noise) and a NaN
+   coordinate in a[0, 2] and b[1, 5], and infinite and 1e20 coordinates
+   in a and b (NaN or +inf by the signs, as the plain version), all in
+   the unit cube: the kernel against its plain version (rtol 1e-4, atol
+   1e-6, NaN and +inf exactly where the plain version has them, no -0.0
+   elsewhere), with kernel ms (CUDA events)
+   and device ms (profiler), plain / library (``torch.cdist`` squared and
+   both minima, a yardstick the port never calls) ms, the bound
+   (``roofline.bound_times``) and its share, and the fp32 bound of
+   ``roofline.chamfer_cost`` (the direct form's 8 FLOP per pair) and its
+   share; then CD (K4), EMD fp32 and EMD bf16-stored
+   pairs/s at the four evaluation B, and bf16 vs fp32 EMD at B = 16 (rtol
+   2.5e-3);
 10. evaluation (``python -m octfusion_tpu_torch.evaluate``): 32 sample and
    32 reference ``.obj`` meshes, marching tetrahedra over seeded
    lumpy-sphere fields on a 64³ grid from two seeds, to 1-NNA / COV / MMD
@@ -103,8 +112,10 @@ its count over the counted runs of phases 5, 8 and 12, K4's over phase
 of phases 3 and 6, 9, or 11, K1's and K3's ``gemm_ms`` the GEMM-alone
 yardstick over the same shapes, and K5's ``k1_ms`` is K1 on phase 11's
 shapes; ``bound_by`` is the larger of the summed operation and byte
-times; every bound is at ``roofline.FLOPS_RATE``, the rate of the units
-the kernel runs on), then the card's name and power limit, and last
+times; every bound is ``roofline.bound_times``: the operations at
+``roofline.FLOPS_RATE``, the rate of the units the kernel runs on, and
+K4's minima at ``roofline.MINIMA_RATE``), then the card's name and power
+limit, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises: there is no CPU fallback.  The
 run uses one card, the first visible one.  Usage:
 ``python3 chip_smoke.py [--steps N] [--seed S]``.
@@ -149,10 +160,13 @@ TOL_EMD_CARD = dict(rtol=1e-3, atol=0.0)   # card vs CPU: reduction order
 TOL_EMD_BF16 = dict(rtol=2.5e-3, atol=0.0)
 # phase 9: (case, B, N, M)
 CHAMFER_CASES = [("eval", 16, EVAL_POINTS, EVAL_POINTS),
+                 ("eval", 32, EVAL_POINTS, EVAL_POINTS),
                  ("eval", 64, EVAL_POINTS, EVAL_POINTS),
                  ("eval", 256, EVAL_POINTS, EVAL_POINTS),
                  ("ragged", 2, 700, 1100),
-                 ("near_duplicate", 16, EVAL_POINTS, EVAL_POINTS)]
+                 ("near_duplicate", 16, EVAL_POINTS, EVAL_POINTS),
+                 ("nan", 4, EVAL_POINTS, EVAL_POINTS),
+                 ("non_finite", 4, EVAL_POINTS, EVAL_POINTS)]
 # phase 10
 EVAL_SHAPES = 32        # sample meshes, and as many reference meshes
 EVAL_GRID = 64
@@ -198,13 +212,14 @@ class KernelStats:
     gemm_ms: Optional[float] = None
     k1_ms: Optional[float] = None
 
-    def add(self, err, ms, plain_ms, cost, flops_rate, library_ms=None,
+    def add(self, err, ms, plain_ms, name, cost, library_ms=None,
             gemm_ms=None, k1_ms=None) -> float:
-        """Adds one shape, ``cost`` = (flops, bytes) with the flops at
-        ``flops_rate``; returns its bound."""
+        """Adds one shape of the kernel behind entry point ``name``, ``cost``
+        = (flops, bytes), bounded by ``roofline.bound_times``; returns its
+        bound."""
         from octfusion_tpu_torch.ops import roofline
 
-        ops, nbytes = roofline.times_ms(*cost, flops_rate=flops_rate)
+        ops, nbytes = roofline.bound_times(name, *cost)
         bound = max(ops, nbytes)
         self.max_abs_err = max(self.max_abs_err, err)
         self.ms += ms
@@ -278,6 +293,32 @@ def cuda_ms(fn, reps=20, warmup=3):
     return statistics.median(times)
 
 
+def device_ms(fn, reps=20, warmup=3, tries=5):
+    """Mean device milliseconds of ``fn`` per call: the summed durations of
+    the kernels and copies it ran in ``reps`` calls under
+    ``torch.profiler``, so the host's time between launches does not count
+    (``cuda_ms`` reads a call shorter than its own launch overhead as that
+    overhead).  A trace without device events is taken again, up to
+    ``tries`` times, then raises."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(e.device_time_total for e in prof.events()
+                    if e.device_type == DeviceType.CUDA)
+        if total > 0:
+            return total / 1e3 / reps
+    raise RuntimeError("the profiler's traces hold no device time")
+
+
 def analytic_reg(octree, full_depth, depth_out):
     """Per-node lumpy-sphere planes (n, r - radius) over ``octree``: the same
     shapes as the decoder's planes, a realistic iso-surface."""
@@ -346,8 +387,7 @@ def check_kernel(graph, shapes, gen) -> KernelStats:
         del cbuf
         e = int(lvl.n_edges)
         cost = roofline.graph_conv_fwd_cost(lvl.g_cap, c, cout, e)
-        bound = stats.add(err, tk, tp, cost,
-                          roofline.FLOPS_RATE["graph_conv_fwd"], gemm_ms=tg)
+        bound = stats.add(err, tk, tp, "graph_conv_fwd", cost, gemm_ms=tg)
         print(f"k1 d={d} G={lvl.g_cap} E={e} C={c} C'={cout}"
               f" max_abs_err={err:.3e} max_rel_err={err / ref_max:.3e}"
               f" tol=rtol {TOL_KERNEL['rtol']:g} atol {TOL_KERNEL['atol']:g}"
@@ -420,8 +460,7 @@ def check_backward_kernels(graph, shapes, gen):
             del got, ref
             tk, tp = cuda_ms(kern), cuda_ms(plain)
             tg = cuda_ms(gemm) if gemm else None
-            bound = res[name].add(err, tk, tp, cost,
-                                  roofline.FLOPS_RATE[name], gemm_ms=tg)
+            bound = res[name].add(err, tk, tp, name, cost, gemm_ms=tg)
             line.append(f"{name} max_abs_err={err:.3e} kernel_ms={tk:.4f} "
                         f"plain_ms={tp:.4f} "
                         + (f"gemm_ms={tg:.4f} " if gemm else "")
@@ -646,26 +685,45 @@ def check_chamfer(seed) -> KernelStats:
             b = a + 1e-3 * torch.randn(a.shape, device=dev, generator=gen)
         else:
             b = torch.rand(bsz, m, 3, device=dev, generator=gen) - 0.5
+        if case == "nan":
+            a[0, 2, 1] = float("nan")
+            b[1, 5, 0] = float("nan")
+        if case == "non_finite":
+            a[0, 3, 2] = float("inf")
+            a[1, 4, 0] = 1e20
+            b[2, 6, 1] = -float("inf")
+            b[3, 9, 2] = -1e20
         got, ref = k4.chamfer(a, b), k4.chamfer_plain(a, b)
         torch.cuda.synchronize()
-        err = max((g - r).abs().max().item() for g, r in zip(got, ref))
+        err = max((g - r).nan_to_num(0.0).abs().max().item()
+                  for g, r in zip(got, ref))
         for g, r in zip(got, ref):
-            torch.testing.assert_close(g, r, **TOL_CHAMFER)
-            if torch.signbit(g).any():
+            torch.testing.assert_close(g, r, equal_nan=True, **TOL_CHAMFER)
+            if torch.signbit(g[~g.isnan()]).any():
                 raise AssertionError(f"-0.0 in K4's output at {case}")
+        if case == "nan" and not (got[0][1].isnan().all()
+                                  and got[1][0].isnan().all()):
+            raise AssertionError("K4 dropped a NaN")
+        if case == "non_finite" and not (got[0][0, 3].isnan()
+                                         and got[0][1, 4].isinf()):
+            raise AssertionError("K4 dropped an infinity")
         del got, ref
         tk = cuda_ms(lambda: k4.chamfer(a, b))
+        tkd = device_ms(lambda: k4.chamfer(a, b))
         tp = cuda_ms(lambda: k4.chamfer_plain(a, b))
         tl = cuda_ms(lambda: cdist_minima(a, b))
-        bound = stats.add(err, tk, tp, roofline.chamfer_cost(bsz, n, m),
-                          roofline.FLOPS_RATE["chamfer"], library_ms=tl)
+        cost = roofline.chamfer_cost(bsz, n, m)
+        bound = stats.add(err, tk, tp, "chamfer", cost, library_ms=tl)
+        bound_fp32 = max(roofline.times_ms(*cost))
         if case == "eval":
             cd_ms[bsz] = tk
         print(f"k4 {case} B={bsz} N={n} M={m} max_abs_err={err:.3e} "
               f"tol=rtol {TOL_CHAMFER['rtol']:g} atol {TOL_CHAMFER['atol']:g}"
-              f" kernel_ms={tk:.4f} plain_ms={tp:.4f} library_ms={tl:.4f} "
-              f"bound_ms={bound:.4f} share_of_bound={bound / tk:.3f}",
-              flush=True)
+              f" kernel_ms={tk:.4f} kernel_dev_ms={tkd:.4f} plain_ms="
+              f"{tp:.4f} library_ms={tl:.4f} bound_ms={bound:.4f} "
+              f"share_of_bound={bound / tk:.3f} share_of_bound_dev="
+              f"{bound / tkd:.3f} bound_fp32_ms={bound_fp32:.4f} "
+              f"share_of_fp32_bound_dev={bound_fp32 / tkd:.3f}", flush=True)
     for bsz, tk in cd_ms.items():
         a = torch.rand(bsz, EVAL_POINTS, 3, device=dev, generator=gen) - 0.5
         b = torch.rand(bsz, EVAL_POINTS, 3, device=dev, generator=gen) - 0.5
@@ -813,9 +871,8 @@ def check_packed_kernel(graph, shapes, gen) -> KernelStats:
         tp = cuda_ms(lambda: k.graph_conv_packed_plain(x, w, *edges))
         t1 = cuda_ms(lambda: k.graph_conv(x, w, *csr))
         e = int(lvl.n_edges)
-        bound = stats.add(err, tk, tp,
+        bound = stats.add(err, tk, tp, "graph_conv_fwd_packed",
                           roofline.graph_conv_fwd_cost(lvl.g_cap, c, cout, e),
-                          roofline.FLOPS_RATE["graph_conv_fwd_packed"],
                           k1_ms=t1)
         print(f"k5 d={d} G={lvl.g_cap} E={e} C={c} C'={cout}"
               f" max_abs_err={err:.3e} max_rel_err={err / ref_max:.3e}"
@@ -1052,6 +1109,11 @@ def main(argv=None):
     print(f"build: graph_conv.cu (K1, K2, K3, K5) and chamfer.cu (K4) "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
 
+    # ---- 9. K4 vs plain; CD / EMD pairs/s (first: its device times come
+    # from profiler traces, which a fresh process takes reliably) ---------
+    k4 = check_chamfer(args.seed)
+    k4.summary("k4 phase 9")
+
     cfg = Config()
     m = cfg.model
     torch.manual_seed(args.seed)
@@ -1154,9 +1216,7 @@ def main(argv=None):
     launches = {name: train_launches[name] for name in measured}
     launches["graph_conv_fwd"] += cascade_launches + dpmpp_k1_launches
 
-    # ---- 9. K4 vs plain; CD / EMD pairs/s ----------------------------
-    measured["chamfer"] = check_chamfer(args.seed)
-    measured["chamfer"].summary("k4 phase 9")
+    measured["chamfer"] = k4
 
     # ---- 10. evaluation from meshes ----------------------------------
     launches["chamfer"] = check_evaluation(args.seed)

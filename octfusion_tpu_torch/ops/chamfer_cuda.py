@@ -5,12 +5,18 @@
 for a [B, N, 3] and b [B, M, 3] float32: the Chamfer terms of every pair
 of clouds.  One hand-written CUDA kernel (``csrc/chamfer.cu``) replaces the
 Pallas kernel ``octfusion_tpu/ops/pallas/chamfer_kernel.py::_kernel``: a
-CTA per (pair, 128 rows of a) keeps its rows' minima in registers while it
-streams b through shared memory, and merges the column minima with one
-``atomicMin`` per column per CTA on ``dr``, which :func:`chamfer` fills
-with +inf first.  It never forms the [N, M] matrix and is bound by fp32
-arithmetic (8 FLOP per pair; tensor cores do not serve a K = 3 product);
-the source says what the design does about it.
+block (one warpgroup) per (pair, 128 rows of a) computes the expansion
+``|a|^2 - 2 a.b + |b|^2`` on the tensor cores (two TF32 ``wgmma`` per
+64 x 128 pairs, the operands split into TF32 halves) and keeps both minima
+with DPX three-way integer minima on the float's bit pattern; each block
+finishes its rows' ``dl`` and merges the column minima with one
+``atomicMin`` per column on ``dr``, which :func:`chamfer` fills with +inf
+first.  It never forms the [N, M] matrix.  A point whose squared norm is
+not finite or is 2^120 or more (a NaN or infinite coordinate, or a huge
+one) is taken apart from the tensor cores, in the plain version's order
+of operations, so it gives NaN and +inf where the plain version does (a
+NaN point: its own minimum and every minimum of the other cloud of the
+pair).
 
 :func:`chamfer_plain` is its plain PyTorch version: the JAX package's
 expansion ``max(|a|^2 - 2 a.b + |b|^2, 0)`` over the whole [B, N, M]
@@ -30,7 +36,7 @@ import torch
 from . import cuda_lib
 
 SOURCE = os.path.join(cuda_lib.CSRC, "chamfer.cu")
-ROWS_PER_CTA = 128   # kRows in the source: one CTA per (pair, row tile)
+ROWS_PER_BLOCK = 128   # kHeld in the source: a block per (pair, row block)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {"chamfer_fwd": [_P] * 4 + [_I] * 3 + [_P]}
@@ -59,7 +65,9 @@ def _load():
 
 def chamfer(a: torch.Tensor, b: torch.Tensor):
     """K4: a [B, N, 3], b [B, M, 3] float32, contiguous, on one CUDA
-    device, N and M at least 1 -> (dl [B, N], dr [B, M]) float32."""
+    device, N and M at least 1 -> (dl [B, N], dr [B, M]) float32.
+    Outputs are +0.0 or more (+inf included), or NaN where the plain
+    version has NaN."""
     if not a.is_cuda:
         raise ValueError("chamfer_cuda.chamfer needs CUDA tensors; use "
                          "chamfer_plain on the CPU")
@@ -73,7 +81,7 @@ def chamfer(a: torch.Tensor, b: torch.Tensor):
         raise ValueError(f"a holds {bsz} clouds and b {b.shape[0]}")
     if n == 0 or m == 0:
         raise ValueError("chamfer needs at least one point per cloud")
-    if bsz * -(-n // ROWS_PER_CTA) >= 2**31:
+    if bsz * -(-n // ROWS_PER_BLOCK) >= 2**31:
         raise ValueError(f"B = {bsz}, N = {n} exceeds the kernel's grid")
     dl = torch.empty((bsz, n), dtype=torch.float32, device=a.device)
     dr = torch.full((bsz, m), float("inf"), dtype=torch.float32,

@@ -6,31 +6,53 @@ Rates from NVIDIA's data sheet, at the 700 W power limit: 495 TFLOP/s of
 dense TF32 on the tensor cores (K1, K3 and K5, whose 3xTF32 split issues
 three tensor-core products per product: their bounds count the
 function's operations once at this rate, so no share can pass 100%),
-67 TFLOP/s in fp32 outside the tensor cores (K2 and K4), and 3.35 TB/s
-of HBM.  Bytes count each input read once and each output written once;
-operations count what the function needs on these inputs (the edges
-present, not the capacity)."""
+67 TFLOP/s in fp32 outside the tensor cores (K2), and 3.35 TB/s of HBM.
+K4 computes its distances on the tensor cores and keeps its minima on the
+integer units, so its operations' time (:func:`bound_times`) is the
+larger of its 8 FLOP per pair at the TF32 rate and its two minima per
+pair at ``MINIMA_RATE``, the part no tensor core can do; :func:`chamfer_cost`
+keeps the 8 FLOP per pair of the direct form, whose bound at the fp32
+rate ``chip_smoke.py`` prints beside it.  Bytes count each input read
+once and each output written once; operations count what the function
+needs on these inputs (the edges present, not the capacity)."""
 
 from __future__ import annotations
 
 FP32_FLOPS = 67e12        # FLOP/s, fp32 outside the tensor cores
 TF32_FLOPS = 495e12       # FLOP/s, dense TF32 on the tensor cores
 HBM_BYTES = 3.35e12       # bytes/s
+# two-input minima/s: the DPX three-way minimum (VIMNMX3) issues at 64
+# per SM and clock (the CUDA C++ Programming Guide's throughput for 32-bit
+# integer minima, which scripts/k4_shapes.py measures) and does two
+# minima, on 132 SMs at the 1.98 GHz of the 67 TFLOP/s fp32 rate
+MINIMA_RATE = 132 * 64 * 2 * 1.98e9
 N_EDGE_TYPE = 7
 F32 = 4
 I32 = 4
 # the peak rate of the units each kernel's operations run on, by entry
-# point: the graph conv's GEMMs on the tensor cores, K2's sums and K4's
-# distances on the fp32 units
+# point: the graph conv's GEMMs and K4's distances on the tensor cores,
+# K2's sums on the fp32 units
 FLOPS_RATE = {"graph_conv_fwd": TF32_FLOPS, "graph_conv_bwd_dx": TF32_FLOPS,
               "graph_conv_fwd_packed": TF32_FLOPS,
-              "graph_conv_col": FP32_FLOPS, "chamfer": FP32_FLOPS}
+              "graph_conv_col": FP32_FLOPS, "chamfer": TF32_FLOPS}
 
 
 def times_ms(flops: float, nbytes: float, flops_rate: float = FP32_FLOPS):
     """-> (ms the operations take at ``flops_rate``, the fp32 peak unless
     given, ms the bytes take at the HBM rate); the bound is the larger."""
     return flops / flops_rate * 1e3, nbytes / HBM_BYTES * 1e3
+
+
+def bound_times(name: str, flops: float, nbytes: float):
+    """The bound terms of the kernel behind entry point ``name`` on its
+    cost (``*_cost``) -> (ms of its operations at ``FLOPS_RATE[name]``,
+    ms of its bytes); for K4 (``chamfer``) the operations' time is the
+    larger of its products at the TF32 rate and its two minima per pair
+    (``flops / 4``) at ``MINIMA_RATE``."""
+    ops_ms, bytes_ms = times_ms(flops, nbytes, FLOPS_RATE[name])
+    if name == "chamfer":
+        ops_ms = max(ops_ms, flops / 4 / MINIMA_RATE * 1e3)
+    return ops_ms, bytes_ms
 
 
 def _csr_bytes(g: int, e: int) -> int:
@@ -66,7 +88,9 @@ def chamfer_cost(b: int, n: int, m: int):
     """K4, (dl [B, N], dr [B, M]) from a [B, N, 3] and b [B, M, 3]: 8 FLOP
     per (i, j) distance (3 subtractions and 3 multiply-adds; the minima
     get no credit); the clouds read, both minima written -> (flops,
-    bytes)."""
+    bytes).  At the fp32 rate, the bound of the direct form on the fp32
+    units."""
     flops = 8 * b * n * m
     nbytes = b * (n + m) * 3 * F32 + b * (n + m) * F32
     return flops, nbytes
+

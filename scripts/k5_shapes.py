@@ -24,7 +24,7 @@ import torch
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
-from chip_smoke import cuda_ms  # noqa: E402
+from chip_smoke import cuda_ms, device_ms  # noqa: E402
 from octfusion_tpu_torch.octree.dual_graph import build_dual_graph  # noqa: E402
 from octfusion_tpu_torch.octree.octree import OctreeSpec  # noqa: E402
 from octfusion_tpu_torch.octree.split_codec import split2octree_small  # noqa: E402
@@ -47,32 +47,6 @@ def graph(device, seed=7, depth=8, full_depth=4):
                              finest_cap_per_sample=131072, decay=4.0)
     return build_dual_graph(split2octree_small(split, spec), 9,
                             up_to=full_depth + 2)
-
-
-def device_ms(fn, reps=20, warmup=3, tries=3):
-    """Mean device milliseconds of ``fn`` per call: the summed durations of
-    the kernels and copies it ran in ``reps`` calls under
-    ``torch.profiler``, so the host's time between launches does not count
-    (``cuda_ms`` reads a call shorter than its own launch overhead as that
-    overhead).  A trace without device events is taken again, up to
-    ``tries`` times, then raises."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    for _ in range(tries):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        total = sum(e.device_time_total for e in prof.events()
-                    if e.device_type == DeviceType.CUDA)
-        if total > 0:
-            return total / 1e3 / reps
-    raise RuntimeError("the profiler's traces hold no device time")
 
 
 def ptxas_report(keep=("gather_gemm", "graph_conv_col")):

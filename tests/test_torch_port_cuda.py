@@ -250,22 +250,75 @@ def test_packed_level_dispatch_and_autograd_guard(cuda):
         n0["graph_conv_fwd_packed"] + 1
 
 
-# K4: fp32 clouds in the unit cube, direct form against the plain
-# version's expansion, whose cancellation is <= ~1e-7 |a|^2
+# K4: fp32 clouds in the unit cube, the kernel's expansion (products on
+# the tensor cores in split TF32) against the plain version's expansion:
+# both carry its cancellation, <= ~1e-7 |a|^2
 TOL_CHAMFER = dict(rtol=1e-4, atol=1e-6)
+# (B, N, M) of each case; none of the ragged N or M is a multiple of the
+# kernel's 128-row block (chamfer_cuda.ROWS_PER_BLOCK), 64-point tile or
+# 512-point chunk
+CHAMFER_SHAPES = {"ragged": (2, 700, 1100), "near_duplicate": (4, 2048, 2048),
+                  "eval_launch": (32, 2048, 2048), "one_row": (3, 1, 517),
+                  "one_column": (3, 517, 1), "one_point": (2, 1, 1),
+                  "identical": (4, 2048, 2048), "nan": (3, 300, 37),
+                  "non_finite": (3, 300, 601)}
 
 
 def _clouds(device, case, seed=0):
+    """Seeded clouds of ``CHAMFER_SHAPES[case]``.  ``near_duplicate``:
+    b = a + 1e-3 noise; ``identical``: b = a; ``nan``: a NaN coordinate in
+    a[0, 7] and in b[1, 36] (the last point of a partial tile), pair 2
+    clean; ``non_finite``: +inf in a[0, 5], 1e20 in a[1, 299] (the last
+    row of a partial block), -inf in b[2, 600] (the last point of a
+    partial tile) and -1e20 in b[0, 17]."""
+    bsz, n, m = CHAMFER_SHAPES[case]
     gen = torch.Generator(device=device).manual_seed(seed)
-    if case == "ragged":   # N != M, neither a multiple of the 128-row tile
-        return (torch.rand(2, 700, 3, device=device, generator=gen) - 0.5,
-                torch.rand(2, 1100, 3, device=device, generator=gen) - 0.5)
-    a = torch.rand(4, 2048, 3, device=device, generator=gen) - 0.5
-    return a, a + 1e-3 * torch.randn(a.shape, device=device, generator=gen)
+    a = torch.rand(bsz, n, 3, device=device, generator=gen) - 0.5
+    if case == "near_duplicate":
+        return a, a + 1e-3 * torch.randn(a.shape, device=device, generator=gen)
+    if case == "identical":
+        return a, a.clone()
+    b = torch.rand(bsz, m, 3, device=device, generator=gen) - 0.5
+    if case == "nan":
+        a[0, 7, 2] = float("nan")
+        b[1, 36, 0] = float("nan")
+    if case == "non_finite":
+        a[0, 5, 1] = float("inf")
+        a[1, 299, 2] = 1e20
+        b[2, 600, 0] = -float("inf")
+        b[0, 17, 1] = -1e20
+    return a, b
+
+
+def _check_chamfer(got, ref, case):
+    """``got`` equals the plain version's ``ref`` within ``TOL_CHAMFER``,
+    NaN and +inf exactly where it has them, and never -0.0 elsewhere (a
+    NaN's sign is free)."""
+    for g, r in zip(got, ref):
+        torch.testing.assert_close(g, r, equal_nan=True, **TOL_CHAMFER)
+        assert not torch.signbit(g[~g.isnan()]).any()   # +0.0, never -0.0
+    dl, dr = got
+    if case == "near_duplicate":
+        assert dl.max() < 1e-4
+    if case == "identical":   # the expansion's cancellation, clamped at +0
+        assert dl.max() <= 1e-6 and dr.max() <= 1e-6
+    if case == "nan":
+        # a NaN row makes its dl and all of the pair's dr NaN, a NaN point
+        # of b its dr and all of the pair's dl; the padding makes none
+        want_l = torch.zeros_like(dl, dtype=torch.bool)
+        want_r = torch.zeros_like(dr, dtype=torch.bool)
+        want_l[0, 7] = want_l[1] = want_r[0] = want_r[1, 36] = True
+        assert torch.equal(dl.isnan(), want_l)
+        assert torch.equal(dr.isnan(), want_r)
+    if case == "non_finite":
+        # an infinite coordinate: NaN or +inf by the products' signs; an
+        # overflowing norm: +inf; never a finite value for either
+        assert dl[0, 5].isnan() and dr[2, 600].isnan()
+        assert dl[1, 299].isinf() and dr[0, 17].isinf()
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["ragged", "near_duplicate"])
+@pytest.mark.parametrize("case", sorted(CHAMFER_SHAPES))
 def test_chamfer_kernel_matches_plain(cuda, case):
     a, b = _clouds(cuda, case)
     n0 = chamfer_cuda.launches["chamfer"]
@@ -273,11 +326,7 @@ def test_chamfer_kernel_matches_plain(cuda, case):
     assert chamfer_cuda.launches["chamfer"] == n0 + 1
     ref = chamfer_cuda.chamfer_plain(a, b)
     torch.cuda.synchronize()
-    for g, r in zip(got, ref):
-        torch.testing.assert_close(g, r, **TOL_CHAMFER)
-        assert not torch.signbit(g).any()   # +0.0, never -0.0
-    if case == "near_duplicate":
-        assert got[0].max() < 1e-4
+    _check_chamfer(got, ref, case)
 
 
 @pytest.mark.cuda

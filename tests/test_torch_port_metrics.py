@@ -61,6 +61,38 @@ def test_chamfer_matches_jax(reference):
         np.testing.assert_allclose(g.numpy(), np.asarray(r), **TOL_CD)
 
 
+@pytest.mark.parametrize("value", [np.nan, np.inf, -np.inf, 1e20])
+@pytest.mark.parametrize("where", ["a", "b"])
+@pytest.mark.parametrize("reference", ["xla", "pallas_interpret"])
+def test_chamfer_non_finite_as_jax(reference, where, value):
+    """A NaN, infinite or 1e20 coordinate in a[0, 2] (or b[0, 2]): K4's
+    plain version gives what the JAX package gives (``jnp.min`` /
+    ``jnp.maximum`` and ``torch.amin`` / ``clamp_min`` all carry NaN), and
+    the card-only tests hold K4 to the same.  A NaN makes that point's own
+    minimum and every minimum of the other cloud of the pair NaN, nowhere
+    else; an infinity gives NaN or +inf by the signs of its products (its
+    own minimum NaN); 1e20 overflows the squared norm, its own minimum
+    +inf.  The other pair stays finite."""
+    a, b = _clouds(2, 40, 50, seed=6)
+    (a if where == "a" else b)[0, 2, 1] = value
+    ja, jb = jnp.asarray(a), jnp.asarray(b)
+    ref = (jd.chamfer(ja, jb) if reference == "xla"
+           else chamfer_pallas(ja, jb, interpret=True))
+    got = chamfer_cuda.chamfer_plain(torch.tensor(a), torch.tensor(b))
+    for g, r in zip(got, ref):
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), equal_nan=True,
+                                   **TOL_CD)
+        assert torch.isfinite(g[1]).all()
+    own, other = (got[0], got[1]) if where == "a" else (got[1], got[0])
+    if np.isnan(value):
+        want = np.zeros(own.shape, bool)
+        want[0, 2] = True
+        np.testing.assert_array_equal(own.isnan().numpy(), want)
+        np.testing.assert_array_equal(other.isnan().numpy()[0], True)
+    else:
+        assert own[0, 2].isnan() if np.isinf(value) else own[0, 2].isinf()
+
+
 def test_chamfer_kernel_wrapper_rejects_cpu_tensors():
     a, b = _clouds(1, 8, 8, seed=0)
     with pytest.raises(ValueError, match="CUDA"):
@@ -238,13 +270,12 @@ def test_roofline_bounds():
 def test_graph_conv_gemm_bounds_use_the_tf32_rate():
     """K1 and K3 run their GEMMs on the tensor cores (3xTF32): their bounds
     take the dense TF32 rate, the function's operations counted once, as
-    K5's; K2 and K4 stay at the fp32 rate."""
+    K5's, and K4's distances; K2 stays at the fp32 rate."""
     rate = roofline.FLOPS_RATE
     for name in ("graph_conv_fwd", "graph_conv_bwd_dx",
-                 "graph_conv_fwd_packed"):
+                 "graph_conv_fwd_packed", "chamfer"):
         assert rate[name] == roofline.TF32_FLOPS == 495e12
-    for name in ("graph_conv_col", "chamfer"):
-        assert rate[name] == roofline.FP32_FLOPS == 67e12
+    assert rate["graph_conv_col"] == roofline.FP32_FLOPS == 67e12
     # K1 at level 4, 515 -> 512: 15.148 GFLOP, 0.0306 ms at 495 TFLOP/s
     # against 0.2261 ms at 67; its 24.2 MB still take 0.0073 ms
     cost = roofline.graph_conv_fwd_cost(4096, 515, 512, 27136)
@@ -262,3 +293,26 @@ def test_graph_conv_gemm_bounds_use_the_tf32_rate():
     assert ops_ms == pytest.approx(0.0078231, rel=1e-4)
     assert bytes_ms == pytest.approx(0.0055891, rel=1e-4)
     assert ops_ms > bytes_ms     # still operation-bound on the TF32 rate
+
+
+def test_chamfer_bound_counts_the_minima():
+    """K4's bound is what no tensor core can do: its two minima per pair at
+    64 three-way minima per SM and clock (two minima each, 132 SMs at
+    1.98 GHz), above its 8 FLOP per pair at the TF32 rate and its bytes;
+    at N = M = 2048, B = 256: 0.0642 ms, half of the 0.1282 ms fp32 bound
+    of the direct form, which ``chamfer_cost`` keeps.  The other kernels'
+    bounds are their operations at ``FLOPS_RATE``."""
+    assert roofline.MINIMA_RATE == 132 * 64 * 2 * 1.98e9
+    ops_ms, bytes_ms = roofline.bound_times(
+        "chamfer", *roofline.chamfer_cost(256, 2048, 2048))
+    minima_ms = 2 * 256 * 2048 * 2048 / roofline.MINIMA_RATE * 1e3
+    assert ops_ms == minima_ms == pytest.approx(0.0641920, rel=1e-5)
+    products_ms, old_bytes_ms = roofline.times_ms(
+        *roofline.chamfer_cost(256, 2048, 2048), flops_rate=495e12)
+    assert products_ms == pytest.approx(0.0173535, rel=1e-5)
+    assert bytes_ms == old_bytes_ms < products_ms < ops_ms
+    old_ms = max(roofline.times_ms(*roofline.chamfer_cost(256, 2048, 2048)))
+    assert ops_ms / old_ms == pytest.approx(0.5006, rel=1e-3)
+    cost = roofline.graph_conv_fwd_cost(4096, 515, 512, 27136)
+    assert roofline.bound_times("graph_conv_fwd", *cost) == roofline.times_ms(
+        *cost, flops_rate=roofline.TF32_FLOPS)
