@@ -104,12 +104,47 @@ input gradient and K5 packed forward; the Chamfer kernel K4):
    noise, whose 256³ mesh is ~10^8 faces of text; the CLI sets fp32 with
    TF32 off itself): 4 non-empty ``.obj``
    files, 4 ``[*] wrote`` lines and K5 launches in its summary line; a
-   second run must skip all 4.
+   second run must skip all 4;
+14. lr training (the lr stage of ``configs/octfusion_snet_uncond.yaml``:
+   lr U-Net 64 ch, mult (1, 2, 4); the split grid built from 65536-point
+   lumpy spheres at the caps from finest_cap 131072): one step card vs
+   CPU at batch 1 with ``lr_pos_weight`` 1.75, all weights perturbed with
+   seeded noise and the same injected times and noise (the loss and every
+   gradient at phase 7's tolerances), then ``LR_TRAIN_STEPS`` (12) steps
+   at batch 4 on one fixed batch with fixed times and noise: no
+   overflow, a finite, falling loss, the median ms/step after 2 warm-up
+   steps with its stage split, and the peak memory;
+15. K1, K2 and K3 vs plain at the VAE's training shapes: every (level, C,
+   C') of the VAE step's graph convs on the batch-2 training graph
+   (levels 6-8 of the encoder and the decoder; C = 11, 31, 37, 38 with
+   the node-type one-hot, none a multiple of 4), as phase 6 does; the
+   graph's line gives each level's largest CSR and transposed-CSR slot;
+16. one full-width VAE train step (``VAESolver.loss_fn`` and its
+   backward) on the card against the CPU at batch 1, all weights
+   perturbed with seeded noise, the same injected eps: the loss, every
+   term of the loss dict and every gradient at phase 7's tolerances, and
+   every VAE parameter must get a gradient that is not all zero;
+17. VAE training (``VAESolver.make_train_step`` with the YAML's
+   ``model``, ``capacity`` and ``loss``: depth 8, stop 6, out 8,
+   checkpointed res blocks, edge_factor 10, ``sdf_reg_loss``, kl 0.1):
+   ``VAE_TRAIN_STEPS`` (8) steps at batch 2 (65536 surface points and
+   ``data.point_sample_num`` SDF samples per shape) on one fixed batch
+   with a fixed eps.  No overflow, a finite, falling loss, K1 launches =
+   GraphConv forward calls (checkpoint recomputes included) and K2 = K3
+   launches = graph-conv backward calls; prints the median ms/step after
+   2 warm-up steps split into graph / forward / backward / optimizer, and
+   the peak memory;
+18. VAE reconstruction (``VAESolver.reconstruct``) of phase 17's 2 shapes
+   from its trained weights: the SDF grid at the YAML's 256³ must be
+   finite and K1 launches = GraphConv calls; then meshes at 64³ into a
+   temp dir (barely trained weights decode noise, as phase 13 says of
+   random ones); prints each stage's seconds.
 
 Prints the kernel summary as a JSON line (each kernel's ``launches`` is
-its count over the counted runs of phases 5, 8 and 12, K4's over phase
-10; ``ms``, ``plain_ms``, ``bound_ms`` and ``library_ms`` sum the shapes
-of phases 3 and 6, 9, or 11, K1's and K3's ``gemm_ms`` the GEMM-alone
+its count over the counted runs of phases 5, 8, 12, 17 and 18, K4's over
+phase 10; ``ms``, ``plain_ms``, ``bound_ms`` and ``library_ms`` sum the
+shapes of phases 3, 6 and 15, 9, or 11, K1's and K3's ``gemm_ms`` the
+GEMM-alone
 yardstick over the same shapes, and K5's ``k1_ms`` is K1 on phase 11's
 shapes; ``bound_by`` is the larger of the summed operation and byte
 times; every bound is ``roofline.bound_times``: the operations at
@@ -179,6 +214,12 @@ DPMPP_STEPS = 25        # per stage, as bench.py's dpmpp_25step_s_per_shape
 TOL_KPACK_CODE = 1e-3   # K5 vs K1 codes / max |code|
 CLI_SHAPES = 4
 CLI_RESOLUTION = 64
+# phases 14-18
+LR_POS_WEIGHT = 1.75    # phase 14's card-vs-CPU step
+LR_TRAIN_STEPS = 12     # at least 10, the first 2 are warm-up
+VAE_BATCH = 2
+VAE_TRAIN_STEPS = 8     # the first 2 are warm-up
+VAE_MESH_RESOLUTION = 64
 REPO = os.path.dirname(os.path.abspath(__file__))
 _CSRC = "octfusion_tpu_torch/csrc"
 SOURCES = {"graph_conv_fwd": f"{_CSRC}/graph_conv.cu",
@@ -484,25 +525,50 @@ def check_train_step(solver, cfg, batch, draws, seed):
     card = UnionSolver(cfg, device="cuda")
     card.df.load_state_dict(cpu.df.state_dict())
     card.vae.load_state_dict(cpu.vae.state_dict())
-    out = {}
+    runs = {}
     for name, s in (("card", card), ("cpu", cpu)):
         s.df.train()
         s.df.unet_lr.requires_grad_(False)
-        dev = s.device
-        t0 = time.perf_counter()
-        loss, _ = s.loss_fn({k: v.to(dev) for k, v in batch.items()},
-                            **{k: v.to(dev) for k, v in draws.items()})
-        loss.backward()
-        out[name] = (loss.item(), {n: p.grad for n, p in
-                                   s.df.named_parameters() if p.requires_grad},
-                     time.perf_counter() - t0)
-    (l_card, g_card, t_card), (l_cpu, g_cpu, t_cpu) = out["card"], out["cpu"]
+        runs[name] = timed_step(s.df, lambda: s.loss_fn(
+            to_device(batch, s.device), **to_device(draws, s.device)))
+    compare_steps("train_step", runs, "unet_hr.")
+
+
+def to_device(batch, device):
+    """A dict of tensors on ``device``."""
+    return {k: v.to(device) for k, v in batch.items()}
+
+
+def timed_step(net, loss_fn):
+    """``loss_fn()`` -> (loss, dict) and its backward -> (the dict's
+    scalars as floats, the trainable parameters' gradients, seconds)."""
+    t0 = time.perf_counter()
+    loss, terms = loss_fn()
+    loss.backward()
+    secs = time.perf_counter() - t0
+    scalars = {k: float(v.detach()) for k, v in terms.items()}
+    return (scalars, {n: p.grad for n, p in net.named_parameters()
+                      if p.requires_grad}, secs)
+
+
+def compare_steps(label, runs, prefix):
+    """Phases 7, 14 and 16: one train step's loss terms and every gradient,
+    card (``runs["card"]``) vs CPU (``runs["cpu"]``), each (terms,
+    gradients, seconds) from :func:`timed_step`.  Every parameter whose
+    name starts with ``prefix`` must get a gradient that is not all
+    zero."""
+    (l_card, g_card, t_card), (l_cpu, g_cpu, t_cpu) = runs["card"], runs["cpu"]
     missing = [n for n, g in g_card.items()
-               if n.startswith("unet_hr.") and (g is None or not g.abs().max() > 0)]
-    if missing or not any(n.startswith("unet_hr.") for n in g_card):
-        raise AssertionError(f"hr U-Net parameters without gradient: {missing}")
-    torch.testing.assert_close(torch.tensor(l_card), torch.tensor(l_cpu),
-                               **TOL_STEP)
+               if n.startswith(prefix) and (g is None or not g.abs().max() > 0)]
+    if missing or not any(n.startswith(prefix) for n in g_card):
+        raise AssertionError(f"{prefix} parameters without gradient: "
+                             f"{missing}")
+    if sorted(l_card) != sorted(l_cpu):
+        raise AssertionError(f"loss terms {sorted(l_card)} vs {sorted(l_cpu)}")
+    for k in l_card:
+        torch.testing.assert_close(torch.tensor(l_card[k]),
+                                   torch.tensor(l_cpu[k]), **TOL_STEP,
+                                   msg=k)
     worst, worst_rel = 0.0, 0.0
     for n, g in g_card.items():
         g = g.cpu()
@@ -519,7 +585,12 @@ def check_train_step(solver, cfg, batch, draws, seed):
                                  f"{scale:.3e}")
         worst = max(worst, err)
         worst_rel = max(worst_rel, err / scale if scale else 0.0)
-    print(f"train_step card vs cpu B=1: loss card={l_card:.6f} cpu={l_cpu:.6f}"
+    if len(l_card) > 1:
+        print(f"{label} terms card / cpu: " + " ".join(
+            f"{k}={l_card[k]:.6f}/{l_cpu[k]:.6f}" for k in sorted(l_card)),
+            flush=True)
+    print(f"{label} card vs cpu B=1: loss card={l_card['loss']:.6f} "
+          f"cpu={l_cpu['loss']:.6f}"
           f" params={len(g_card)} grad max_abs_err={worst:.3e} "
           f"max_err_over_leaf_max={worst_rel:.3e} tol=rtol "
           f"{TOL_STEP['rtol']:g} atol {TOL_STEP['atol']:g} and err <= "
@@ -528,15 +599,18 @@ def check_train_step(solver, cfg, batch, draws, seed):
           flush=True)
 
 
-def run_training(solver, batch, draws, n_steps):
-    """Phase 8: ``n_steps`` train steps on one fixed batch; returns the
-    launch counts of the run."""
+def run_steps(label, step, batch, n_steps, counted: bool, **kw):
+    """Phases 14 and 17: ``n_steps`` timed steps of ``step`` on one fixed
+    batch; prints the losses, the median ms/step after 2 warm-up steps
+    with its stage split, and the peak memory; raises on overflow or a
+    loss that is not finite or does not fall.  With ``counted`` the
+    graph-conv launch counts are set to 0 first and checked after
+    against the GraphConv forward and backward calls -> the run's
+    launches."""
     from octfusion_tpu_torch.nn.modules import GraphConv
     from octfusion_tpu_torch.ops import graph_conv_cuda as k
 
-    step = solver.make_train_step()
-    lr_before = {n: p.detach().clone()
-                 for n, p in solver.df.unet_lr.named_parameters()}
+    torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     k.reset_launches()
     GraphConv.calls = 0
@@ -544,45 +618,73 @@ def run_training(solver, batch, draws, n_steps):
     losses, walls, stages = [], [], []
     for _ in range(n_steps):
         t0 = time.perf_counter()
-        out = step(batch, timed=True, **draws)
+        out = step(batch, timed=True, **kw)
         walls.append(time.perf_counter() - t0)
         losses.append(out["loss"].item())
         stages.append(out["seconds"])
-        if out["overflow"].item():
-            raise AssertionError("the training batch's graph overflows")
+        if "overflow" not in out or out["overflow"].item():
+            raise AssertionError(f"{label}: the batch overflows (or no flag)")
     launches = dict(k.launches)
     calls, bwd = GraphConv.calls, k.GraphConvFunction.backward_calls
     peak = torch.cuda.max_memory_allocated()
-    print("train losses " + " ".join(f"{v:.6f}" for v in losses), flush=True)
+    print(f"{label} losses " + " ".join(f"{v:.6f}" for v in losses),
+          flush=True)
     warm = slice(2, None)
     split = {name: statistics.median(s[name] for s in stages[warm]) * 1e3
              for name in stages[0]}
-    print(f"train: B={batch['points'].shape[0]} steps={n_steps} "
+    print(f"{label}: B={batch['points'].shape[0]} steps={n_steps} "
           f"ms_per_step={statistics.median(walls[warm]) * 1e3:.3f} (median "
           f"after 2 warm-up) first_step_ms={walls[0] * 1e3:.3f} "
-          + " ".join(f"{n}_ms={v:.3f}" for n, v in split.items()), flush=True)
-    print(f"train launches fwd={launches['graph_conv_fwd']} "
-          f"col={launches['graph_conv_col']} "
-          f"bwd_dx={launches['graph_conv_bwd_dx']} graph_conv_calls={calls} "
-          f"graph_conv_backward_calls={bwd}", flush=True)
-    print(f"train peak_memory_bytes={peak} ({peak / 2**30:.2f} GiB)",
+          + " ".join(f"{n}_ms={v:.3f}" for n, v in split.items())
+          + f" peak_memory_bytes={peak} ({peak / 2**30:.2f} GiB)",
           flush=True)
     if not all(math.isfinite(v) for v in losses):
-        raise AssertionError(f"non-finite loss: {losses}")
+        raise AssertionError(f"{label}: non-finite loss: {losses}")
     if not losses[-1] < losses[0]:
-        raise AssertionError(f"the loss did not fall: {losses}")
+        raise AssertionError(f"{label}: the loss did not fall: {losses}")
+    if counted:
+        print(f"{label} launches fwd={launches['graph_conv_fwd']} "
+              f"col={launches['graph_conv_col']} "
+              f"bwd_dx={launches['graph_conv_bwd_dx']} graph_conv_calls="
+              f"{calls} graph_conv_backward_calls={bwd}", flush=True)
+        if launches["graph_conv_fwd"] != calls:
+            raise AssertionError(f"K1 launches {launches['graph_conv_fwd']}"
+                                 f" != GraphConv calls {calls}")
+        if not (launches["graph_conv_col"] == launches["graph_conv_bwd_dx"]
+                == bwd > 0):
+            raise AssertionError(f"K2 {launches['graph_conv_col']} / K3 "
+                                 f"{launches['graph_conv_bwd_dx']} launches "
+                                 f"vs {bwd} graph-conv backward calls")
+    return launches
+
+
+def run_training(solver, batch, draws, n_steps):
+    """Phase 8: ``n_steps`` train steps on one fixed batch; the frozen lr
+    U-Net must stay bit for bit -> the launch counts of the run."""
+    lr_before = {n: p.detach().clone()
+                 for n, p in solver.df.unet_lr.named_parameters()}
+    launches = run_steps("train", solver.make_train_step(), batch, n_steps,
+                         True, **draws)
     for n, p in solver.df.unet_lr.named_parameters():
         if not torch.equal(p, lr_before[n]):
             raise AssertionError(f"frozen lr U-Net parameter {n} changed")
-    if launches["graph_conv_fwd"] != calls:
-        raise AssertionError(f"K1 launches {launches['graph_conv_fwd']} != "
-                             f"GraphConv calls {calls}")
-    if not (launches["graph_conv_col"] == launches["graph_conv_bwd_dx"]
-            == bwd > 0):
-        raise AssertionError(f"K2 {launches['graph_conv_col']} / K3 "
-                             f"{launches['graph_conv_bwd_dx']} launches vs "
-                             f"{bwd} graph-conv backward calls")
     return launches
+
+
+def print_graph(label, g) -> None:
+    """A training graph's node counts, vertex and edge counts and each
+    level's largest CSR and transposed-CSR slot; raises if it
+    overflows."""
+    print(f"{label} graph: nnum " + " ".join(
+        f"d{d}={int(n)}" for d, n in enumerate(g.octree.nnum.tolist()))
+        + " G " + " ".join(f"d{lvl.d}={lvl.g_cap}" for lvl in g.levels)
+        + " E " + " ".join(f"d{lvl.d}={int(lvl.n_edges)}" for lvl in g.levels)
+        + " largest slot (csr/csr_t) " + " ".join(
+            f"d{lvl.d}={int(lvl.csr()[0].diff().max())}/"
+            f"{int(lvl.csr_t()[0].diff().max())}" for lvl in g.levels),
+        flush=True)
+    if g.any_overflow().item():
+        raise AssertionError(f"the {label} batch's graph overflows")
 
 
 def training_setup(seed):
@@ -609,17 +711,7 @@ def training_setup(seed):
              "times": torch.rand(bsz, device=dev, generator=gen),
              "noise": torch.randn(shape, device=dev, generator=gen)}
     g_train = trainer.batch_graph(batch)
-    print("train graph: nnum " + " ".join(
-        f"d{d}={int(n)}" for d, n in enumerate(g_train.octree.nnum.tolist()))
-        + " G " + " ".join(f"d{lvl.d}={lvl.g_cap}" for lvl in g_train.levels)
-        + " E " + " ".join(f"d{lvl.d}={int(lvl.n_edges)}"
-                           for lvl in g_train.levels)
-        + " largest slot (csr/csr_t) " + " ".join(
-            f"d{lvl.d}={int(lvl.csr()[0].diff().max())}/"
-            f"{int(lvl.csr_t()[0].diff().max())}" for lvl in g_train.levels),
-        flush=True)
-    if g_train.any_overflow().item():
-        raise AssertionError("the training batch's graph overflows")
+    print_graph("train", g_train)
     # K1 runs at every conv's shape, the frozen encoder's included; K2 and
     # K3 only at the differentiable convs of the hr U-Net
     fwd_shapes, shapes = set(), set()
@@ -659,6 +751,172 @@ def check_training(seed):
         "noise": torch.randn(shape1, generator=gen1)}, seed)
 
     return measured, run_training(trainer, batch, draws, TRAIN_STEPS)
+
+
+def check_lr_training(seed):
+    """Phase 14: the lr stage of ``configs/octfusion_snet_uncond.yaml``,
+    one step card vs CPU at batch 1 (``lr_pos_weight`` 1.75), then
+    ``LR_TRAIN_STEPS`` steps at batch 4."""
+    from octfusion_tpu_torch.config import load_config
+    from octfusion_tpu_torch.models.union_solver import UnionSolver
+    from octfusion_tpu_torch.utils.shapes import lumpy_spheres
+
+    dev = torch.device("cuda")
+    tcfg = load_config(TRAIN_CONFIG)
+    s = 2**tcfg.model.full_depth
+    wcfg = dataclasses.replace(tcfg, diffusion=dataclasses.replace(
+        tcfg.diffusion, lr_pos_weight=LR_POS_WEIGHT))
+    torch.manual_seed(seed)
+    cpu = UnionSolver(wcfg, stage_flag="lr", device="cpu")
+    perturb_([cpu.df], torch.Generator().manual_seed(seed + 8))
+    card = UnionSolver(wcfg, stage_flag="lr", device=dev)
+    card.df.load_state_dict(cpu.df.state_dict())
+    pts, nrm = lumpy_spheres(1, tcfg.data.points_per_shape, seed)
+    gen = torch.Generator().manual_seed(seed + 9)
+    draws = {"times": torch.rand(1, generator=gen),
+             "noise": torch.randn(1, s, s, s, 8, generator=gen)}
+    runs = {}
+    for name, sol in (("card", card), ("cpu", cpu)):
+        sol.df.train()
+        runs[name] = timed_step(sol.df, lambda: sol.loss_fn(
+            to_device({"points": pts, "normals": nrm}, sol.device),
+            **to_device(draws, sol.device)))
+    compare_steps(f"lr_step (lr_pos_weight {LR_POS_WEIGHT:g})", runs,
+                  "unet_lr.")
+    del cpu, card
+
+    torch.manual_seed(seed)
+    trainer = UnionSolver(tcfg, stage_flag="lr", device=dev)
+    bsz = tcfg.data.batch_size
+    pts, nrm = lumpy_spheres(bsz, tcfg.data.points_per_shape, seed,
+                             device=dev)
+    gen = torch.Generator(device=dev).manual_seed(seed + 10)
+    draws = {"times": torch.rand(bsz, device=dev, generator=gen),
+             "noise": torch.randn(bsz, s, s, s, 8, device=dev,
+                                  generator=gen)}
+    run_steps("lr train", trainer.make_train_step(),
+              {"points": pts, "normals": nrm}, LR_TRAIN_STEPS, False,
+              **draws)
+
+
+def vae_setup(seed):
+    """The VAE of ``configs/octfusion_snet_uncond.yaml`` on the card ->
+    (solver, config, the batch-2 batch, eps, its graph, the (level, C,
+    C') of every graph conv of a train step).  Prints the graph's sizes;
+    raises if it overflows."""
+    from octfusion_tpu_torch.config import load_config
+    from octfusion_tpu_torch.models.common import batch_to_graph
+    from octfusion_tpu_torch.models.vae_solver import VAESolver
+    from octfusion_tpu_torch.utils.shapes import lumpy_sphere_batch
+
+    dev = torch.device("cuda")
+    cfg = load_config(TRAIN_CONFIG)
+    torch.manual_seed(seed)
+    solver = VAESolver(cfg, device=dev)
+    batch = lumpy_sphere_batch(VAE_BATCH, cfg.data.points_per_shape,
+                               cfg.data.point_sample_num, seed, device=dev)
+    eps = torch.randn(solver.code_shape(VAE_BATCH), device=dev,
+                      generator=torch.Generator(device=dev).manual_seed(
+                          seed + 11))
+    g = batch_to_graph(batch["points"], batch["normals"], solver.spec1,
+                       solver.edge_factor)[1]
+    print_graph("vae", g)
+    shapes = set()
+    hooks = conv_shape_hooks([solver.vae], shapes)
+    with torch.no_grad():
+        solver.vae(g, g, eps=eps)
+    for h in hooks:
+        h.remove()
+    return solver, cfg, batch, eps, g, shapes
+
+
+def check_vae_step(solver, cfg, batch, seed):
+    """Phase 16: one full-width VAE train step's loss terms and gradients,
+    card vs CPU at batch 1, from the same perturbed weights and eps."""
+    from octfusion_tpu_torch.models.vae_solver import VAESolver
+
+    cpu = VAESolver(cfg, device="cpu")
+    cpu.vae.load_state_dict(solver.vae.state_dict())
+    perturb_([cpu.vae], torch.Generator().manual_seed(seed + 12))
+    card = VAESolver(cfg, device="cuda")
+    card.vae.load_state_dict(cpu.vae.state_dict())
+    one = {k: v[:1].cpu() for k, v in batch.items()}
+    eps = torch.randn(cpu.code_shape(1),
+                      generator=torch.Generator().manual_seed(seed + 13))
+    runs = {}
+    for name, sol in (("card", card), ("cpu", cpu)):
+        sol.vae.train()
+        runs[name] = timed_step(sol.vae, lambda: sol.loss_fn(
+            to_device(one, sol.device), eps=eps.to(sol.device)))
+    compare_steps("vae_step", runs, "")
+
+
+def check_vae_training(seed):
+    """Phases 15-18 on the VAE of ``configs/octfusion_snet_uncond.yaml``
+    -> (K1 / K2 / K3 measurements at the VAE's training shapes, the
+    launches of the training run (phase 17) and of the reconstruction
+    (phase 18))."""
+    from octfusion_tpu_torch.nn.modules import GraphConv
+    from octfusion_tpu_torch.ops import graph_conv_cuda as k
+
+    dev = torch.device("cuda")
+    solver, cfg, batch, eps, g, shapes = vae_setup(seed)
+    # ---- 15 -------------------------------------------------------------
+    gen = torch.Generator(device=dev).manual_seed(seed + 14)
+    measured = {"graph_conv_fwd": check_kernel(g, shapes, gen),
+                **check_backward_kernels(g, shapes, gen)}
+    for name, label in (("graph_conv_fwd", "k1 phase 15 (vae training)"),
+                        ("graph_conv_col", "k2 phase 15 (vae training)"),
+                        ("graph_conv_bwd_dx", "k3 phase 15 (vae training)")):
+        measured[name].summary(label)
+    del g
+    # ---- 16 -------------------------------------------------------------
+    check_vae_step(solver, cfg, batch, seed)
+    # ---- 17 -------------------------------------------------------------
+    train_launches = run_steps("vae train", solver.make_train_step(), batch,
+                               VAE_TRAIN_STEPS, True, eps=eps)
+    # ---- 18 -------------------------------------------------------------
+    m = cfg.model
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    k.reset_launches()
+    GraphConv.calls = 0
+    sdfs, out = solver.reconstruct(batch)
+    recon_launches, calls = dict(k.launches), GraphConv.calls
+    peak = torch.cuda.max_memory_allocated()
+    octree = out["octree_out"]
+    print("vae reconstruct: " + " ".join(
+        f"{n}_s={v:.3f}" for n, v in out["seconds"].items())
+        + f" resolution={sdfs.shape[1]} nnum " + " ".join(
+            f"d{d}={int(n)}" for d, n in enumerate(octree.nnum.tolist()))
+        + f" overflow={bool(out['graph_out'].any_overflow())} "
+        f"k1_launches={recon_launches['graph_conv_fwd']} graph_conv_calls="
+        f"{calls} peak_memory_bytes={peak} ({peak / 2**30:.2f} GiB)",
+        flush=True)
+    want = (VAE_BATCH,) + (cfg.solver.resolution,) * 3
+    if tuple(sdfs.shape) != want or not torch.isfinite(sdfs).all():
+        raise AssertionError(f"reconstruct: sdf {tuple(sdfs.shape)} (want "
+                             f"{want}) or non-finite values")
+    if not recon_launches["graph_conv_fwd"] == calls > 0:
+        raise AssertionError(f"reconstruct: K1 launches "
+                             f"{recon_launches['graph_conv_fwd']} != "
+                             f"GraphConv calls {calls}")
+    print(f"vae reconstruct sdf: min={sdfs.min().item():.4f} "
+          f"max={sdfs.max().item():.4f}", flush=True)
+    del sdfs, out, octree
+    with tempfile.TemporaryDirectory() as root:
+        paths = [os.path.join(root, f"{i}.obj") for i in range(VAE_BATCH)]
+        _, out = solver.reconstruct(batch, resolution=VAE_MESH_RESOLUTION,
+                                    save_paths=paths)
+        sizes = [os.path.getsize(p) if os.path.exists(p) else 0
+                 for p in paths]
+    print(f"vae reconstruct meshes at {VAE_MESH_RESOLUTION}^3 (barely "
+          "trained weights decode noise): " + " ".join(
+              f"{n}_s={v:.3f}" for n, v in out["seconds"].items())
+          + f" obj_bytes={sizes}", flush=True)
+    launches = {name: train_launches[name] for name in measured}
+    launches["graph_conv_fwd"] += recon_launches["graph_conv_fwd"]
+    return measured, launches
 
 
 def cdist_minima(a, b):
@@ -1215,6 +1473,15 @@ def main(argv=None):
     measured["graph_conv_fwd"] = k1
     launches = {name: train_launches[name] for name in measured}
     launches["graph_conv_fwd"] += cascade_launches + dpmpp_k1_launches
+
+    # ---- 14. lr training ----------------------------------------------
+    check_lr_training(args.seed)
+
+    # ---- 15-18. VAE training and reconstruction -----------------------
+    vae_measured, vae_launches = check_vae_training(args.seed)
+    for name, stats in vae_measured.items():
+        measured[name].merge(stats)
+        launches[name] += vae_launches[name]
 
     measured["chamfer"] = k4
 

@@ -175,6 +175,7 @@ def diffusion_loss(
     times: Optional[torch.Tensor] = None,
     noise: Optional[torch.Tensor] = None,
     generator: Optional[torch.Generator] = None,
+    elem_weight=None,
 ) -> torch.Tensor:
     """Continuous-time denoising MSE.
 
@@ -182,8 +183,9 @@ def diffusion_loss(
     graph states pass per-vertex batch ids and a validity mask, and the
     mean runs over the valid vertices.  ``times`` [B] and ``noise`` (x0's
     shape) are drawn from ``generator``, in that order, unless given (a
-    test injects the JAX package's draws).  The lr stage's per-element
-    weights are not ported yet."""
+    test injects the JAX package's draws).  ``elem_weight`` (broadcastable
+    to x0's shape) makes the loss sum(w * err) / sum(w), the lr stage's
+    occupancy weighting; ``None`` keeps the plain mean."""
     f32 = dict(dtype=x0.dtype, device=x0.device)
     if times is None:
         times = torch.rand((batch_size,), generator=generator, **f32)
@@ -203,7 +205,12 @@ def diffusion_loss(
     out = denoise_fn(noised, snr)
     target = x0 if df_type == "x0" else noise.to(**f32)
     err = (out - target) ** 2
-    norm = torch.ones_like(err)
+    if elem_weight is not None:
+        norm = torch.as_tensor(elem_weight, dtype=err.dtype,
+                               device=err.device).expand_as(err)
+        err = err * norm
+    else:
+        norm = torch.ones_like(err)
     if mask is not None:
         err = torch.where(mask[:, None], err, torch.zeros_like(err))
         norm = torch.where(mask[:, None], norm, torch.zeros_like(norm))

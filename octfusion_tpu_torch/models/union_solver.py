@@ -6,18 +6,21 @@ dual graph carries the hr stage, which denoises VAE latents with the frozen
 lr U-Net as its middle, and the growing VAE decode plus the dense MPU
 produce an SDF grid (and, on request, a mesh).
 
-Training (hr stage): a point-cloud batch becomes an octree and its dual
-graph on the device, the frozen VAE encoder gives the latent codes, and
-the hr U-Net learns to denoise them (``loss_fn``); ``make_train_step``
-adds the backward pass, AdamW with StepLR(1000, 0.9) over the hr U-Net
-(the lr U-Net is frozen) and the EMA.  Modules own their parameters; the
-JAX package's jit caches and compile warm-up have no counterpart here.
+Training: in the lr stage the batch's split grid (precomputed as
+``split_small``, or built from its points' octree) is the dense target of
+the lr U-Net, with occupied entries weighted by
+``diffusion.lr_pos_weight``; in the hr stage a point-cloud batch becomes
+an octree and its dual graph on the device, the frozen VAE encoder gives
+the latent codes, and the hr U-Net learns to denoise them (``loss_fn``).
+``make_train_step`` adds the backward pass, AdamW with StepLR(1000, 0.9)
+over the stage's trainable U-Nets (the hr stage freezes the lr U-Net) and
+the EMA.  Modules own their parameters; the JAX package's jit caches and
+compile warm-up have no counterpart here.
 """
 
 from __future__ import annotations
 
 import os
-import time
 from typing import Dict, Optional
 
 import torch
@@ -28,35 +31,17 @@ from ..diffusion import sampler, schedule
 from ..nn.unet_union import UNetUnion, UnionConfig
 from ..nn.vae import GraphVAE
 from ..octree import split_codec
-from ..octree.dual_graph import (GraphSpec, build_dual_graph,
-                                 with_packed_levels)
+from ..octree.dual_graph import build_dual_graph, with_packed_levels
 from ..utils import mesh as mesh_utils
 from ..utils import sdf as sdf_utils
 from ..utils.device import resolve_device, use_fp32_math
-from .common import batch_to_graph
+from .common import Laps, batch_to_graph, batch_to_octree, code_shape
 
 
 def use_kpack() -> bool:
     """Packed forward convs (K5) on sampling graphs; off unless
     ``OCTFUSION_CONV_KPACK=1``, as in the JAX package."""
     return os.environ.get("OCTFUSION_CONV_KPACK", "0") == "1"
-
-
-class _Laps:
-    """Wall seconds of named stages; the device is synchronised at each
-    stage end, so a stage's seconds include its device work."""
-
-    def __init__(self, device):
-        self.device = torch.device(device)
-        self.seconds: Dict[str, float] = {}
-        self._t0 = time.perf_counter()
-
-    def __call__(self, name: str) -> None:
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        now = time.perf_counter()
-        self.seconds[name] = now - self._t0
-        self._t0 = now
 
 
 class UnionSolver:
@@ -107,9 +92,7 @@ class UnionSolver:
     def code_shape(self, batch_size: int):
         """Shape of the level-``depth_stop`` latent codes of a training
         batch (the shape of the VAE's ``eps`` and of the loss's noise)."""
-        spec = GraphSpec(self.spec1.with_batch_size(batch_size),
-                         self.edge_factor)
-        return (spec.g_cap(self.small_depth), self.cfg.model.embed_dim)
+        return code_shape(self.cfg, batch_size)
 
     def batch_graph(self, batch):
         """points / normals [B, N, 3] -> the batch's dual graph of every
@@ -128,17 +111,52 @@ class UnionSolver:
             self.df_type["hr"], mask=lvl.node_mask, times=times, noise=noise,
             generator=generator)
 
+    def lr_loss(self, batch, label=None, times=None, noise=None,
+                generator=None, lap=None):
+        """-> (loss, {"loss"[, "overflow"]}) of one lr-stage batch: the
+        x0-MSE of the lr U-Net on the split grid, ``batch["split_small"]``
+        [B, S, S, S, 8] when present, else built from the points' octree
+        (whose overflow flag is then reported).  With
+        ``diffusion.lr_pos_weight`` != 1 the occupied (+1) entries weigh
+        that much; ``times`` / ``noise`` (NDHWC) as in
+        ``sampler.diffusion_loss``; ``lap`` as in :meth:`loss_fn`."""
+        lap = lap or (lambda name: None)
+        octree = None
+        if "split_small" in batch:
+            split = batch["split_small"].to(self.device, torch.float32)
+        else:
+            octree = batch_to_octree(batch["points"], batch["normals"],
+                                     self.spec1)
+            split = split_codec.octree2split_small(octree)
+        lap("graph")
+        pw = self.cfg.diffusion.lr_pos_weight
+        elem_w = (torch.where(split > 0, pw, 1.0) if pw != 1.0 else None)
+        loss = sampler.diffusion_loss(
+            lambda noised, snr: self.df("lr", noised, snr, label=label),
+            split, None, split.shape[0], self.log_snr, self.df_type["lr"],
+            times=times, noise=noise, generator=generator,
+            elem_weight=elem_w)
+        out = {"loss": loss.detach()}
+        if octree is not None:
+            out["overflow"] = octree.overflow.any().to(torch.float32)
+        return loss, out
+
     def loss_fn(self, batch, times=None, noise=None, eps=None,
                 generator=None, lap=None):
-        """-> (loss, {"loss", "overflow"}) of one hr-stage batch.  The
-        random draws (the encoder's ``eps``, then the loss's ``times`` and
-        ``noise``) come from ``generator`` unless given; ``lap(name)``, if
-        given, is called after the graph build and after the encode."""
-        if self.stage_flag != "hr":
-            raise NotImplementedError("only the hr stage trains in the port")
+        """-> (loss, {"loss", "overflow"}) of one batch of the solver's
+        stage (the lr stage: :meth:`lr_loss`, whose ``overflow`` is absent
+        with a precomputed ``split_small``).  The random draws (the hr
+        encoder's ``eps``, then the loss's ``times`` and ``noise``) come
+        from ``generator`` unless given; ``lap(name)``, if given, is called
+        after the graph build and after the encode."""
         lap = lap or (lambda name: None)
         label = (batch.get("label")
                  if self.union_cfg.num_classes is not None else None)
+        if self.stage_flag == "lr":
+            return self.lr_loss(batch, label, times, noise, generator, lap)
+        if self.stage_flag != "hr":
+            raise NotImplementedError(
+                f"stage {self.stage_flag!r} does not train in the port")
         g = self.batch_graph(batch)
         lap("graph")
         with torch.no_grad():   # the frozen VAE's codes are the target
@@ -152,7 +170,8 @@ class UnionSolver:
         """AdamW + StepLR(1000, 0.9) over the trainable parameters.  The hr
         stage freezes the lr U-Net: it is left out of the optimizer (no
         update, no weight decay) and gets no gradient, while gradients
-        still flow through its activations."""
+        still flow through its activations.  The lr stage trains all of
+        ``df`` (the lr U-Net alone)."""
         if self.stage_flag == "hr" and self.df.unet_lr is not None:
             self.df.unet_lr.requires_grad_(False)
         t = self.cfg.train
@@ -248,7 +267,7 @@ class UnionSolver:
         if kpack is None:
             kpack = use_kpack()
         self.df.eval()
-        lap = _Laps(self.device)
+        lap = Laps(self.device)
         split_small = self.sample_lr(
             batch_size, label=label, steps=steps, noise_stream=lr_noise,
             generator=generator)
@@ -284,9 +303,10 @@ class UnionSolver:
 
 
 class TrainStep:
-    """One optimisation step of the hr stage: batch -> graph, the frozen
-    encoder under ``torch.no_grad``, the hr loss and its backward, an AdamW
-    step, StepLR and an EMA update of the U-Net's parameters with
+    """One optimisation step of the solver's stage: the loss (hr: batch ->
+    graph, the frozen encoder under ``torch.no_grad``, the hr loss; lr:
+    the split grid and the lr loss) and its backward, an AdamW step,
+    StepLR and an EMA update of the U-Nets' parameters with
     ``diffusion.ema_rate``.  Holds the optimizer state and the EMA
     (``ema``: name -> tensor over every parameter of ``solver.df``)."""
 
@@ -307,13 +327,14 @@ class TrainStep:
 
     def __call__(self, batch, times=None, noise=None, eps=None,
                  generator=None, timed: bool = False) -> Dict:
-        """-> {"loss", "overflow"} (device scalars, as the JAX step's); with
-        ``timed`` also "seconds" of the stages graph / encode /
+        """-> {"loss", "overflow"} (device scalars, as the JAX step's; the
+        lr stage has no "overflow" with a precomputed split); with
+        ``timed`` also "seconds" of the stages graph / encode (hr) /
         forward_backward / optimizer_ema (the device is synchronised at
         each stage end)."""
         s = self.solver
         s.df.train()
-        lap = _Laps(s.device) if timed else (lambda name: None)
+        lap = Laps(s.device) if timed else (lambda name: None)
         self.optimizer.zero_grad(set_to_none=True)
         loss, out = s.loss_fn(batch, times, noise, eps, generator, lap)
         loss.backward()

@@ -4,10 +4,11 @@
 the level-``depth`` graph, a GraphConv stem, residual blocks and
 leaf-preserving downsamples to ``depth_stop``, and a 1x1 head giving a
 diagonal Gaussian over ``embed_dim`` channels per level-``depth_stop``
-vertex.  ``decode_grow`` is the inference decoder: it predicts per-level
-split logits and MPU plane parameters, splitting and growing the octree
-level by level and extending the dual graph as it goes.  The
-fixed-topology ``decode`` and the colour heads are not ported yet.  Module
+vertex.  The decoder predicts per-level split logits and MPU plane
+parameters: ``decode`` on a fixed topology (training, the input's own
+graph), ``decode_grow`` splitting and growing the octree level by level
+and extending the dual graph as it goes (inference).  ``forward``
+autoencodes with the KL term.  The colour heads are not ported.  Module
 names follow the reference's keys, so a whole reference state dict loads
 with ``strict=True``.
 """
@@ -20,11 +21,22 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..octree.dual_graph import DualGraph, extend_dual_graph
+from ..octree.dual_graph import DualGraph, build_dual_graph, extend_dual_graph
+from ..octree.octree import Octree, create_full_octree
 from ..ops import graph_ops
 from . import distributions, modules
 
 DEFAULT_CHANNELS = (4, 512, 512, 256, 128, 64, 32, 32, 24, 8)
+
+
+def copy_topology_octree(octree_in: Octree, to_depth: int) -> Octree:
+    """A fresh octree whose topology up to ``to_depth`` copies
+    ``octree_in``'s (the reference's ``create_child_octree``)."""
+    out = create_full_octree(octree_in.spec, octree_in.device)
+    for d in range(octree_in.spec.full_depth, to_depth):
+        label = octree_in.nempty_mask(d).to(torch.int64)
+        out = out.octree_split(label, d).octree_grow(d + 1)
+    return out
 
 
 class PredictHead(nn.ModuleList):
@@ -69,6 +81,7 @@ class GraphVAE(nn.Module):
         super().__init__()
         del full_depth  # the dual graph carries it
         self.depth = depth
+        self.embed_dim = embed_dim
         ds = self.depth_stop = depth_stop
         self.depth_out = depth_out
         ch = channels
@@ -126,22 +139,45 @@ class GraphVAE(nn.Module):
         mean, logvar = self.encode(g)
         return distributions.sample(mean, logvar, eps, generator)
 
+    def _decode_start(self, code: torch.Tensor, g: DualGraph):
+        x = self.post_KL_conv(code)
+        x = self.decoder_mid.block_1(x, g.level(self.depth_stop))
+        return self.decoder_mid.block_2(x, g.level(self.depth_stop))
+
+    def _decode_level(self, i: int, d: int, x, g: DualGraph):
+        """Level ``d``'s res blocks and split logits on its current-level
+        vertices."""
+        x = self.decoder[i](x, g.level(d))
+        logit = self.predict[i](x, g.level(d))
+        return x, graph_ops._cur_segment(logit, g, d)
+
+    def decode(self, code: torch.Tensor, g: DualGraph) -> Dict:
+        """Fixed-topology decode (training): ``g`` holds every level up to
+        ``depth_out`` of the octree the planes are predicted on."""
+        ds = self.depth_stop
+        x = self._decode_start(code, g)
+        logits, reg_voxs = {}, {}
+        for i, d in enumerate(range(ds, self.depth_out + 1)):
+            if d > ds:
+                x = self.upsample[i - 1](x, g, d)
+            x, logits[d] = self._decode_level(i, d, x, g)
+            reg = self.regress[i](x, g.level(d))
+            reg_voxs[d] = graph_ops.graph_to_level_arrays(reg, g, d)
+        return {"logits": logits, "reg_voxs": reg_voxs,
+                "octree_out": g.octree, "graph_out": g}
+
     def decode_grow(self, code: torch.Tensor, g: DualGraph) -> Dict:
         """Growing decode (inference): split each level from its predicted
         logits, grow, extend the dual graph, continue.  ``g`` covers levels
         up to ``depth_stop`` of an octree matching the code's layout."""
         ds = self.depth_stop
         octree = g.octree
-        x = self.post_KL_conv(code)
-        x = self.decoder_mid.block_1(x, g.level(ds))
-        x = self.decoder_mid.block_2(x, g.level(ds))
+        x = self._decode_start(code, g)
         logits, reg_voxs = {}, {}
         for i, d in enumerate(range(ds, self.depth_out + 1)):
             if d > ds:
                 x = self.upsample[i - 1](x, g, d)
-            x = self.decoder[i](x, g.level(d))
-            logits[d] = graph_ops._cur_segment(
-                self.predict[i](x, g.level(d)), g, d)
+            x, logits[d] = self._decode_level(i, d, x, g)
             if d < self.depth_out:
                 label = torch.argmax(logits[d], dim=-1)
                 octree = octree.octree_split(label, d).octree_grow(d + 1)
@@ -150,3 +186,30 @@ class GraphVAE(nn.Module):
             reg_voxs[d] = graph_ops.graph_to_level_arrays(reg, g, d)
         return {"logits": logits, "reg_voxs": reg_voxs,
                 "octree_out": octree, "graph_out": g}
+
+    def forward(self, g_in: DualGraph, g_out: Optional[DualGraph] = None,
+                eps: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> Dict:
+        """Autoencode: encode ``g_in``, sample the codes (``eps`` or
+        ``generator`` as in :func:`distributions.sample`), and decode on
+        ``g_out``'s fixed topology, or, without ``g_out``, grow from the
+        input's topology up to ``depth_stop``.  Adds "kl_loss" (the mean
+        over the valid level-``depth_stop`` vertices and ``embed_dim``),
+        "code", "code_max" and "code_min" to the decoder's dict."""
+        ds = self.depth_stop
+        mean, logvar = self.encode(g_in)
+        z = distributions.sample(mean, logvar, eps, generator)
+        if g_out is None:
+            octree_out = copy_topology_octree(g_in.octree, ds)
+            out = self.decode_grow(z, build_dual_graph(
+                octree_out, g_in.spec.edge_factor, up_to=ds))
+        else:
+            out = self.decode(z, g_out)
+        mask = g_in.level(ds).node_mask[:, None]
+        kl_elem = distributions.kl(mean, logvar)
+        out["kl_loss"] = torch.where(mask, kl_elem, torch.zeros_like(
+            kl_elem)).sum() / (mask.sum() * self.embed_dim).clamp(min=1)
+        out["code"] = z
+        out["code_max"] = torch.where(mask, z, -torch.inf).max()
+        out["code_min"] = torch.where(mask, z, torch.inf).min()
+        return out

@@ -189,6 +189,50 @@ class Octree:
                     y.clamp(0, s), z.clamp(0, s)]
         return torch.where(m[:, None], vals, torch.zeros_like(vals))
 
+    def pad_nempty(self, data: torch.Tensor, d: int) -> torch.Tensor:
+        """Data on the non-empty nodes (compact, [n, C]) -> all nodes at
+        ``d``, zeros on empty and padded ones (ocnn ``octree_pad``)."""
+        gathered = data[self.child[d].clamp(0, data.shape[0] - 1)]
+        return torch.where(self.nempty_mask(d)[:, None], gathered,
+                           torch.zeros_like(gathered))
+
+    def depad_nempty(self, data: torch.Tensor, d: int) -> torch.Tensor:
+        """Data on all nodes at ``d`` -> the non-empty nodes' rows,
+        compact, zeros past ``nnum_nempty[d]`` (ocnn ``octree_depad``)."""
+        valid = self._arange(self.spec.node_caps[d]) < self.nnum_nempty[d]
+        rows = data[self.nonempty_position(d)]
+        return torch.where(valid[:, None], rows, torch.zeros_like(rows))
+
+    # ------------------------------------------------------------------
+    # key search (the MPU's corner lookups)
+    # ------------------------------------------------------------------
+    def search_key(self, qkey: torch.Tensor, qbatch: torch.Tensor,
+                   d: int) -> torch.Tensor:
+        """Slots of the (batch, key) queries at depth ``d``; -1 where
+        absent.  The valid prefix is sorted by (batch, key) and padded
+        slots (batch ``batch_size``, key ``INVALID_KEY``) sort last, so one
+        binary search suffices; a query that lands in the padded tail is
+        absent."""
+        from ..ops.search import searchsorted_pair
+
+        idx = searchsorted_pair(self.batch[d], self.keys[d], qbatch, qkey)
+        idx_c = idx.clamp(0, self.spec.node_caps[d] - 1)
+        found = ((idx < self.nnum[d]) & (self.keys[d][idx_c] == qkey)
+                 & (self.batch[d][idx_c] == qbatch))
+        return torch.where(found, idx_c, torch.full_like(idx_c, -1))
+
+    def lookup_table(self, d: int) -> torch.Tensor:
+        """Dense (batch, morton key) -> node slot table, -1 where absent:
+        [batch_size * 8^d] int64, one gather in place of a search.  It
+        costs B * 8^d entries, so it serves grid evaluation, not the
+        training loss."""
+        n = self.batch_size * 8**d
+        addr = self.batch[d] * 8**d + self.keys[d]
+        cap = self.spec.node_caps[d]
+        return set_where(
+            torch.full((n,), -1, dtype=torch.int64, device=self.device),
+            addr, self._arange(cap), self.node_mask(d))
+
     # ------------------------------------------------------------------
     # growth (decode path)
     # ------------------------------------------------------------------

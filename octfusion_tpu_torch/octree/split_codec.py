@@ -1,11 +1,26 @@
-"""Dense split grid -> octree (port of the sampling half of
-``octfusion_tpu/octree/split_codec.py``)."""
+"""Split-bit codecs between octrees and the dense split grid (port of
+``octree2split_small`` / ``split2octree_small`` in
+``octfusion_tpu/octree/split_codec.py``).
+
+``split_small`` is the depth-(full_depth+1) child-occupancy pattern as a
+dense ``[B, S, S, S, 8]`` grid (NDHWC), values in {-1, +1}: the lr
+diffusion stage's state."""
 
 from __future__ import annotations
 
 import torch
 
 from .octree import Octree, OctreeSpec, create_full_octree
+
+
+def octree2split_small(octree: Octree) -> torch.Tensor:
+    """-> [B, S, S, S, 8] in {-1, +1}, S = 2**full_depth: each full-depth
+    node's 8 child-occupancy bits."""
+    fd = octree.spec.full_depth
+    cap1 = octree.spec.node_caps[fd + 1]
+    occ8 = octree.nempty_mask(fd + 1).to(torch.float32).reshape(cap1 // 8, 8)
+    vox = octree.to_voxel(octree.pad_nempty(occ8, fd), fd)
+    return 2.0 * vox - 1.0
 
 
 def split2octree_small(split: torch.Tensor, spec: OctreeSpec) -> Octree:

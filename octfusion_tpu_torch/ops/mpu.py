@@ -1,15 +1,22 @@
-"""Dense-grid evaluation of the neural multi-level partition-of-unity SDF
-(port of ``mpu_dense_channels`` / ``_lerp_axis`` / ``mpu_grid_eval`` in
-``octfusion_tpu/ops/mpu.py``).
+"""The neural multi-level partition-of-unity SDF (port of
+``octfusion_tpu/ops/mpu.py``, colour interpolation excepted).
 
 Each octree node at depths ``full_depth..d`` carries a plane ``(n, b)``; a
 query's SDF is the trilinear-weighted blend of ``n·Δx + b`` over its 8
-corner nodes per depth, normalised by the blended weights.  On a regular
-grid the corner weights are trilinear interpolation weights, so the blend
-becomes six dense per-node channels per depth resampled by three
-axis-separable lerps (see the reference module for the derivation).  The
-scattered-query forms (``mpu_eval``, its analytic gradient) serve training
-and are not ported yet.
+corner nodes per depth, normalised by the blended weights.
+
+* Scattered queries (training): ``octree_corner_info`` finds each query's
+  8 corner nodes per depth by key search (or a dense ``lookup_table``),
+  ``mpu_eval`` blends them, ``mpu_eval_grad`` adds the closed-form
+  spatial gradient in the same pass, and ``neural_mpu`` evaluates every
+  target depth with the corner lookups shared.  Every query keeps its
+  static 8 corner slots per depth with masks.  The absolute value in the
+  trilinear basis (``abs_one``) has derivative sign(x) with sign(0) = +1,
+  as the reference's custom gradient.
+* A regular grid (inference): the corner weights are trilinear
+  interpolation weights, so the blend becomes six dense per-node channels
+  per depth resampled by three axis-separable lerps (see the JAX module
+  for the derivation).
 """
 
 from __future__ import annotations
@@ -18,7 +25,177 @@ from typing import Dict
 
 import torch
 
+from ..octree import morton
 from ..octree.octree import Octree, set_where
+
+# corner offsets, x-major
+_CORNERS = ((0, 0, 0), (0, 0, 1), (0, 1, 0), (0, 1, 1),
+            (1, 0, 0), (1, 0, 1), (1, 1, 0), (1, 1, 1))
+
+
+def _sign1(x: torch.Tensor) -> torch.Tensor:
+    """sign(x) with sign(0) = +1."""
+    return torch.where(x < 0, -1.0, 1.0).to(x.dtype)
+
+
+class _AbsOne(torch.autograd.Function):
+    """|x| with derivative sign(x), sign(0) = +1 (``torch.abs`` has 0
+    there), in reverse and forward mode."""
+
+    @staticmethod
+    def forward(x):
+        return x.abs()
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(inputs[0])
+        ctx.save_for_forward(inputs[0])
+
+    @staticmethod
+    def backward(ctx, grad):
+        (x,) = ctx.saved_tensors
+        return grad * _sign1(x)
+
+    @staticmethod
+    def jvp(ctx, tangent):
+        (x,) = ctx.saved_tensors
+        return tangent * _sign1(x)
+
+
+def abs_one(x: torch.Tensor) -> torch.Tensor:
+    return _AbsOne.apply(x)
+
+
+def linear_basis(x: torch.Tensor) -> torch.Tensor:
+    return 1.0 - abs_one(x)
+
+
+def octree_corner_info(octree: Octree, depth: int, pos: torch.Tensor,
+                       pt_batch: torch.Tensor, table=None):
+    """The 8 trilinear corner nodes at ``depth`` of queries ``pos`` [N, 3]
+    in [-1, 1]^3 of samples ``pt_batch`` [N].  ``table``
+    (``octree.lookup_table(depth)``) replaces the binary search with one
+    gather.  Returns (idx [N, 8] node slot or -1, coordsf [N, 8, 3]
+    offsets in the query's scale, weights [N, 8] trilinear · depth²/50,
+    valid [N, 8])."""
+    scale = 2**depth
+    xyzf = (pos + 1.0) * (scale / 2.0) - 0.5
+    xyzi = torch.floor(xyzf)
+    corners = xyzi[:, None, :] + torch.tensor(
+        _CORNERS, dtype=pos.dtype, device=pos.device)[None]     # [N, 8, 3]
+    coordsf = xyzf[:, None, :] - corners
+    inb = ((corners > -1) & (corners < scale)).all(dim=-1)      # [N, 8]
+    ci = corners.clamp(0, scale - 1).to(torch.int64)
+    key = morton.xyz2key(ci[..., 0], ci[..., 1], ci[..., 2], depth)
+    qb = pt_batch[:, None].expand(key.shape)
+    if table is not None:
+        n = octree.batch_size * 8**depth
+        addr = qb.clamp(0, octree.batch_size - 1) * 8**depth + key
+        idx = table[addr.clamp(0, n - 1)]
+    else:
+        idx = octree.search_key(key.reshape(-1), qb.reshape(-1),
+                                depth).reshape(key.shape)
+    valid = inb & (idx >= 0)
+    w = torch.prod(linear_basis(coordsf), dim=-1) * (depth**2 / 50.0)
+    return idx, coordsf * (2.0 / scale), w, valid
+
+
+def _level_terms(octree, dd, depth_end, pos, pt_batch, reg_levels,
+                 corner_cache, tables):
+    """One depth's corners: (coordsf, w, use mask, gathered planes
+    [N, 8, 4], plane values [N, 8]).  Corners at depths below
+    ``depth_end`` count only on octree leaves."""
+    if corner_cache is not None and dd in corner_cache:
+        idx, coordsf, w, valid = corner_cache[dd]
+    else:
+        idx, coordsf, w, valid = octree_corner_info(
+            octree, dd, pos, pt_batch,
+            table=None if tables is None else tables.get(dd))
+    idx_c = idx.clamp(0, octree.spec.node_caps[dd] - 1)
+    use = valid if dd == depth_end else (
+        valid & (octree.child[dd][idx_c] < 0))
+    reg = reg_levels[dd][idx_c.reshape(-1)].reshape(pos.shape[0], 8, 4)
+    fval = torch.sum(reg[..., :3] * coordsf, dim=-1) + reg[..., 3]
+    return coordsf, w, use, valid, reg, fval
+
+
+def mpu_eval(pos: torch.Tensor, pt_batch: torch.Tensor,
+             reg_levels: Dict[int, torch.Tensor], octree: Octree,
+             full_depth: int, depth_end: int, corner_cache=None,
+             tables=None):
+    """Blend per-node planes into SDF values at ``pos``.
+    ``reg_levels[dd]`` is the [node_caps[dd], 4] plane array of depth dd
+    (zeros off the graph).  Returns (sdf [N], covered [N]: some corner of
+    depth ``depth_end`` exists)."""
+    n = pos.shape[0]
+    num = pos.new_zeros(n)
+    den = pos.new_zeros(n)
+    covered = torch.zeros(n, dtype=torch.bool, device=pos.device)
+    for dd in range(full_depth, depth_end + 1):
+        _, w, use, valid, _, fval = _level_terms(
+            octree, dd, depth_end, pos, pt_batch, reg_levels, corner_cache,
+            tables)
+        if dd == depth_end:
+            covered = valid.any(dim=-1)
+        wm = torch.where(use, w, torch.zeros_like(w))
+        num = num + torch.sum(wm * fval, dim=-1)
+        den = den + torch.sum(wm, dim=-1)
+    return num / (den + 1e-8), covered
+
+
+def mpu_eval_grad(pos: torch.Tensor, pt_batch: torch.Tensor,
+                  reg_levels: Dict[int, torch.Tensor], octree: Octree,
+                  full_depth: int, depth_end: int, corner_cache=None,
+                  tables=None):
+    """``mpu_eval`` and its spatial gradient in one pass, in closed form:
+    (sdf [N], dsdf/dpos [N, 3]).  With f_c = n_c·Δx_c + b_c, ∂f_c/∂pos =
+    n_c; the weight w_c = (d²/50)·Π_a(1 - |r_a|) (r the in-cell offset)
+    has ∂w_c/∂pos_a = (d²/50)·(S/2)·(-sign r_a)·Π_{b≠a}(1 - |r_b|) with
+    sign(0) = +1, as ``abs_one``; the quotient rule finishes
+    N / (D + eps).  No double backward: the result is differentiable in
+    the planes by ordinary reverse mode."""
+    n = pos.shape[0]
+    num = pos.new_zeros(n)
+    den = pos.new_zeros(n)
+    dnum = pos.new_zeros(n, 3)
+    dden = pos.new_zeros(n, 3)
+    for dd in range(full_depth, depth_end + 1):
+        coordsf, w, use, _, reg, fval = _level_terms(
+            octree, dd, depth_end, pos, pt_batch, reg_levels, corner_cache,
+            tables)
+        scale = 2**dd
+        wm = torch.where(use, w, torch.zeros_like(w))             # [N, 8]
+        num = num + torch.sum(wm * fval, dim=-1)
+        den = den + torch.sum(wm, dim=-1)
+        # the raw in-cell offsets; products of the other two bases, so
+        # |r| = 1 edges (w = 0, ∂w != 0) stay exact
+        r = coordsf * (scale / 2.0)                               # [N, 8, 3]
+        basis = 1.0 - r.abs()
+        pe = torch.stack([basis[..., 1] * basis[..., 2],
+                          basis[..., 0] * basis[..., 2],
+                          basis[..., 0] * basis[..., 1]], dim=-1)
+        dw = (dd * dd / 50.0) * (scale / 2.0) * (-_sign1(r)) * pe
+        dwm = torch.where(use[..., None], dw, torch.zeros_like(dw))
+        dnum = dnum + torch.sum(
+            dwm * fval[..., None] + wm[..., None] * reg[..., :3], dim=1)
+        dden = dden + torch.sum(dwm, dim=1)
+    d_eps = den + 1e-8
+    sdf = num / d_eps
+    grad = (dnum * d_eps[:, None] - num[:, None] * dden) / (
+        d_eps * d_eps)[:, None]
+    return sdf, grad
+
+
+def neural_mpu(pos: torch.Tensor, pt_batch: torch.Tensor,
+               reg_voxs: Dict[int, Dict[int, torch.Tensor]], octree: Octree,
+               full_depth: int, depth_stop: int, depth_end: int):
+    """Every target depth: {d: (sdf, covered)} for d in
+    depth_stop..depth_end, the corner lookups shared across depths."""
+    cache = {dd: octree_corner_info(octree, dd, pos, pt_batch)
+             for dd in range(full_depth, depth_end + 1)}
+    return {d: mpu_eval(pos, pt_batch, reg_voxs[d], octree, full_depth, d,
+                        corner_cache=cache)
+            for d in range(depth_stop, depth_end + 1)}
 
 
 def mpu_dense_channels(reg: torch.Tensor, octree: Octree, dd: int,

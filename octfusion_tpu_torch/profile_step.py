@@ -7,10 +7,18 @@ configuration, caps from finest_cap 131072).  A two-step cascade grows
 the depth-``depth_stop`` graph the hr step runs on; then each stage's
 denoise call is warmed up and run ``--steps`` times.  ``hr_kpack`` is the
 same hr step with the graph's levels packed, so its graph convs run the
-packed kernel K5 instead of K1.  With ``--train``:
-the hr-stage train step (``UnionSolver.make_train_step``; batch 4 of
-65536-point lumpy spheres, ``configs/octfusion_snet_uncond.yaml``), with
-fixed encoder eps, times and noise.
+packed kernel K5 instead of K1.  With ``--train``, a train step of
+``configs/octfusion_snet_uncond.yaml`` on seeded lumpy spheres of 65536
+points, by ``--stage``:
+
+* ``hr`` (default): the hr-stage step (``UnionSolver.make_train_step``,
+  batch 4), with fixed encoder eps, times and noise;
+* ``lr``: the lr-stage step (``stage_flag="lr"``, batch 4: the split grid
+  built from the points), with fixed times and noise;
+* ``vae``: the VAE step (``VAESolver.make_train_step``, batch 2 with
+  ``data.point_sample_num`` SDF samples per shape, fixed eps) as
+  ``vae_full``, its loss alone without the backward (``vae_fwd``) and the
+  batch's octree and dual graph alone (``vae_graph``).
 
 Each profiled call is warmed up, timed ``--steps`` times on the host clock
 (device synchronised at the end) and run ``--steps`` times under
@@ -21,7 +29,8 @@ holds; one stream, so they do not overlap), the idle share
 eight kernels that take the most device time, with their launches per
 step.  The last line is the same as one JSON object.
 
-Usage: ``python -m octfusion_tpu_torch.profile_step [--steps N] [--train]``.
+Usage: ``python -m octfusion_tpu_torch.profile_step [--steps N]
+[--train [--stage hr|lr|vae]]``.
 """
 
 import argparse
@@ -35,13 +44,16 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from .config import Config, load_config
+from .models.common import batch_to_graph
 from .models.union_solver import UnionSolver
+from .models.vae_solver import VAESolver
 from .octree.dual_graph import with_packed_levels
 from .utils.device import use_fp32_math
-from .utils.shapes import lumpy_spheres
+from .utils.shapes import lumpy_sphere_batch, lumpy_spheres
 
 TOP = 8     # kernels listed per stage
 SEED = 0
+VAE_BATCH = 2
 TRAIN_CONFIG = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
     "configs", "octfusion_snet_uncond.yaml")
@@ -111,20 +123,42 @@ def _denoise_steps(dev, steps):
         }
 
 
-def _train_step(dev, steps):
+def _train_step(dev, steps, stage):
     cfg = load_config(TRAIN_CONFIG)
     torch.manual_seed(SEED)
-    solver = UnionSolver(cfg, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    if stage == "vae":
+        solver = VAESolver(cfg, device=dev)
+        batch = lumpy_sphere_batch(VAE_BATCH, cfg.data.points_per_shape,
+                                   cfg.data.point_sample_num, SEED, dev)
+        eps = torch.randn(solver.code_shape(VAE_BATCH), device=dev,
+                          generator=gen)
+        step = solver.make_train_step()
+
+        def forward():
+            with torch.no_grad():
+                solver.loss_fn(batch, eps=eps)
+
+        return {
+            "vae_full": profile_stage(lambda: step(batch, eps=eps), steps),
+            "vae_fwd": profile_stage(forward, steps),
+            "vae_graph": profile_stage(lambda: batch_to_graph(
+                batch["points"], batch["normals"], solver.spec1,
+                solver.edge_factor), steps),
+        }
+    solver = UnionSolver(cfg, stage_flag=stage, device=dev)
     b = cfg.data.batch_size
     pts, nrm = lumpy_spheres(b, cfg.data.points_per_shape, SEED, device=dev)
     batch = {"points": pts, "normals": nrm}
-    gen = torch.Generator(device=dev).manual_seed(SEED)
-    shape = solver.code_shape(b)
-    draws = {"eps": torch.randn(shape, device=dev, generator=gen),
-             "times": torch.rand(b, device=dev, generator=gen),
+    s = 2**cfg.model.full_depth
+    shape = (solver.code_shape(b) if stage == "hr" else (b, s, s, s, 8))
+    draws = {"times": torch.rand(b, device=dev, generator=gen),
              "noise": torch.randn(shape, device=dev, generator=gen)}
+    if stage == "hr":
+        draws["eps"] = torch.randn(shape, device=dev, generator=gen)
     step = solver.make_train_step()
-    return {"train": profile_stage(lambda: step(batch, **draws), steps)}
+    return {f"train_{stage}": profile_stage(lambda: step(batch, **draws),
+                                            steps)}
 
 
 def main(argv=None):
@@ -132,14 +166,17 @@ def main(argv=None):
     ap.add_argument("--steps", type=int, default=5,
                     help="steps profiled per stage")
     ap.add_argument("--train", action="store_true",
-                    help="profile the hr train step instead of the denoise "
+                    help="profile a train step instead of the denoise "
                          "steps")
+    ap.add_argument("--stage", choices=("hr", "lr", "vae"), default="hr",
+                    help="the train step --train profiles")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_step: no CUDA device")
     use_fp32_math()
     dev = torch.device("cuda")
-    result = (_train_step if args.train else _denoise_steps)(dev, args.steps)
+    result = (_train_step(dev, args.steps, args.stage) if args.train
+              else _denoise_steps(dev, args.steps))
     for stage, r in result.items():
         print(f"{stage}: wall_ms/step={r['wall_ms']:.3f} "
               f"device_ms/step={r['device_ms']:.3f} "

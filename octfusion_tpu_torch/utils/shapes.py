@@ -1,10 +1,36 @@
 """Seeded analytic shapes for driving the port without a dataset: lumpy
-spheres as point clouds with exact normals (training) and as signed fields
-on a grid (meshes for the evaluation path)."""
+spheres as point clouds with exact normals (training), as SDF samples with
+exact gradients (VAE training) and as signed fields on a grid (meshes for
+the evaluation path)."""
 
 from __future__ import annotations
 
 import torch
+
+
+def _draw(gen: torch.Generator, b: int, n_points: int):
+    """Unit directions [B, N, 3] and each sample's (R, a, k, axis), in the
+    order :func:`lumpy_spheres` draws them."""
+    u = torch.randn(b, n_points, 3, generator=gen)
+    u = u / u.norm(dim=-1, keepdim=True)
+    radius = 0.3 + 0.08 * torch.rand(b, 1, generator=gen)
+    amp = 0.02 + 0.04 * torch.rand(b, 1, generator=gen)
+    freq = 3.0 + 3.0 * torch.rand(b, 1, generator=gen)
+    axis = torch.randn(b, 1, 3, generator=gen)
+    axis = axis / axis.norm(dim=-1, keepdim=True)
+    return u, radius, amp, freq, axis
+
+
+def _field(p, radius, amp, freq, axis):
+    """``F(p) = |p| - rho(p / |p|)`` and its exact gradient
+    ``u - (I - u u^T) grad_u(rho) / |p|`` at points ``p`` [B, N, 3]."""
+    r = p.norm(dim=-1, keepdim=True).clamp(min=1e-9)
+    u = p / r
+    t = (u * axis).sum(-1)
+    rho = radius + amp * torch.sin(freq * t)
+    grad_rho = (amp * freq * torch.cos(freq * t))[..., None] * axis
+    tangential = grad_rho - (grad_rho * u).sum(-1, keepdim=True) * u
+    return r[..., 0] - rho, u - tangential / r
 
 
 def lumpy_spheres(batch_size: int, n_points: int, seed: int = 0,
@@ -18,14 +44,7 @@ def lumpy_spheres(batch_size: int, n_points: int, seed: int = 0,
     ``F(p) = |p| - rho(p / |p|)``.  Drawn on the CPU, so a seed gives the
     same cloud on every machine."""
     gen = torch.Generator().manual_seed(seed)
-    b = batch_size
-    u = torch.randn(b, n_points, 3, generator=gen)
-    u = u / u.norm(dim=-1, keepdim=True)
-    radius = 0.3 + 0.08 * torch.rand(b, 1, generator=gen)
-    amp = 0.02 + 0.04 * torch.rand(b, 1, generator=gen)
-    freq = 3.0 + 3.0 * torch.rand(b, 1, generator=gen)
-    axis = torch.randn(b, 1, 3, generator=gen)
-    axis = axis / axis.norm(dim=-1, keepdim=True)
+    u, radius, amp, freq, axis = _draw(gen, batch_size, n_points)
     t = (u * axis).sum(-1)
     rho = radius + amp * torch.sin(freq * t)
     points = rho[..., None] * u
@@ -35,6 +54,40 @@ def lumpy_spheres(batch_size: int, n_points: int, seed: int = 0,
     normals = u - tangential / rho[..., None]
     normals = normals / normals.norm(dim=-1, keepdim=True)
     return points.to(device), normals.to(device)
+
+
+def lumpy_sphere_sdf_samples(batch_size: int, n: int, seed: int = 0,
+                             points_per_shape: int = 65536, device="cpu"):
+    """SDF supervision of the shapes ``lumpy_spheres(batch_size,
+    points_per_shape, seed)``: -> {"pos", "sdf", "grad"}, [B, n, 3], [B, n]
+    and [B, n, 3] f32, the value and exact gradient of
+    ``F(p) = |p| - rho(p / |p|)`` (negative inside) at ``n`` points per
+    shape, the first ``n // 2`` uniform in [-1, 1]^3 and the rest near the
+    surface (surface points moved by N(0, 0.02²) per axis).  Drawn on the
+    CPU from ``seed``."""
+    gen = torch.Generator().manual_seed(seed)
+    b = batch_size
+    _, radius, amp, freq, axis = _draw(gen, b, points_per_shape)
+    n_far = n // 2
+    far = 2.0 * torch.rand(b, n_far, 3, generator=gen) - 1.0
+    u = torch.randn(b, n - n_far, 3, generator=gen)
+    u = u / u.norm(dim=-1, keepdim=True)
+    rho = radius + amp * torch.sin(freq * (u * axis).sum(-1))
+    near = rho[..., None] * u + 0.02 * torch.randn(u.shape, generator=gen)
+    pos = torch.cat([far, near], dim=1)
+    sdf, grad = _field(pos, radius, amp, freq, axis)
+    return {"pos": pos.to(device), "sdf": sdf.to(device),
+            "grad": grad.to(device)}
+
+
+def lumpy_sphere_batch(batch_size: int, n_points: int, n_sdf: int,
+                       seed: int = 0, device="cpu"):
+    """A VAE training batch without a dataset: ``points`` / ``normals``
+    of :func:`lumpy_spheres` and ``n_sdf`` SDF samples of the same shapes
+    (:func:`lumpy_sphere_sdf_samples`)."""
+    pts, nrm = lumpy_spheres(batch_size, n_points, seed, device=device)
+    return {"points": pts, "normals": nrm, **lumpy_sphere_sdf_samples(
+        batch_size, n_sdf, seed, points_per_shape=n_points, device=device)}
 
 
 def lumpy_sphere_fields(batch_size: int, resolution: int, seed: int = 0,

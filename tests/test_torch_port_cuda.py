@@ -5,27 +5,34 @@ gradient and K5 packed forward (all four also on the edge-case level of
 guard; K2 also on an x that is not 16-byte aligned), the
 differentiable graph conv on the card, the Chamfer kernel K4 with the
 evaluation's tile loop, and the solver's fp32 precision (the lr denoise
-step, card against CPU).  They skip without a GPU; on
-one, run them with
+step, card against CPU); K1 / K2 / K3 at the VAE's odd input widths on
+its depth-8 training graph; the VAE and lr train steps card against CPU
+on ``configs/synthetic_tiny.yaml``; and the training solvers' default
+device.  They skip without a GPU; on one, run them with
 
     python -m pytest tests/test_torch_port_cuda.py --noconftest -m cuda -q
 
 (``--noconftest`` because the suite's conftest imports JAX, which the GPU
 machine does not have).  This file imports no JAX."""
 
+import os
+
 import numpy as np
 import pytest
 import torch
 
 import test_torch_port_csr_cases as csr_cases
-from octfusion_tpu_torch.config import Config
+from octfusion_tpu_torch.config import Config, load_config
+from octfusion_tpu_torch.models.common import batch_to_graph
 from octfusion_tpu_torch.models.union_solver import UnionSolver
+from octfusion_tpu_torch.models.vae_solver import VAESolver
 from octfusion_tpu_torch.octree.dual_graph import (build_dual_graph,
                                                    with_packed_levels)
 from octfusion_tpu_torch.octree.octree import OctreeSpec
 from octfusion_tpu_torch.octree.split_codec import split2octree_small
 from octfusion_tpu_torch.metrics import distances
 from octfusion_tpu_torch.ops import chamfer_cuda, graph_conv_cuda, graph_ops
+from octfusion_tpu_torch.utils.shapes import lumpy_sphere_batch
 
 # fp32 on both sides, different summation order: rtol = atol = 1e-4
 TOL = 1e-4
@@ -421,3 +428,145 @@ def test_solver_computes_lr_step_in_fp32():
     finally:
         (torch.backends.cuda.matmul.allow_tf32,
          torch.backends.cudnn.allow_tf32) = saved
+
+
+# ----------------------------------------------------------------------
+# VAE and lr training
+# ----------------------------------------------------------------------
+CONFIGS = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "configs")
+
+
+@pytest.fixture(scope="module")
+def vae_graph():
+    """The VAE's batch-2 training graph on the card: two 65536-point lumpy
+    spheres at the caps of ``configs/octfusion_snet_uncond.yaml`` (levels
+    4-8; level 8 has ~3.6e5 vertices)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernel; no CPU mode)")
+    cfg = load_config(os.path.join(CONFIGS, "octfusion_snet_uncond.yaml"))
+    batch = lumpy_sphere_batch(2, 65536, 8, seed=0, device="cuda")
+    spec = cfg.capacity.octree_spec(8, 4, 1)
+    g = batch_to_graph(batch["points"], batch["normals"], spec,
+                       cfg.capacity.edge_factor)[1]
+    assert not g.any_overflow().item()
+    return g
+
+
+# the VAE's graph convs: C = channels + node types, none a multiple of 4
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,c,cout", [(8, 11, 24), (8, 31, 24),
+                                      (7, 38, 32), (6, 37, 32)])
+def test_kernels_match_plain_at_vae_shapes(cuda, vae_graph, d, c, cout):
+    """K1, K2 and K3 against their plain versions at the VAE's (level, C,
+    C'), and at the same widths on the synthetic edge-case level (G =
+    1000, not a multiple of the 64-row tile; slots of >= 2000 edges)."""
+    gen = torch.Generator(device=cuda).manual_seed(c)
+    for lvl in (vae_graph.level(d), csr_cases.synthetic_level(device=cuda)):
+        edges = (lvl.edge_row, lvl.edge_col, lvl.edge_dir, lvl.edge_scale)
+        x = torch.randn(lvl.g_cap, c, device=cuda, generator=gen)
+        dout = torch.randn(lvl.g_cap, cout, device=cuda, generator=gen)
+        w = torch.randn(7 * c, cout, device=cuda, generator=gen) / (7 * c) ** 0.5
+        got = (graph_conv_cuda.graph_conv(x, w, *lvl.csr()),
+               graph_conv_cuda.graph_conv_col(x, *lvl.csr()),
+               graph_conv_cuda.graph_conv_bwd_dx(dout, w, *lvl.csr_t()))
+        ref = (graph_conv_cuda.graph_conv_plain(x, w, *edges),
+               graph_conv_cuda.graph_conv_col_plain(x, *edges),
+               graph_conv_cuda.graph_conv_bwd_dx_plain(dout, w, *edges))
+        torch.cuda.synchronize()
+        for a, b in zip(got, ref):
+            assert b.abs().max() > 0
+            torch.testing.assert_close(a, b, rtol=TOL, atol=TOL)
+
+
+def _tiny_config():
+    return load_config(os.path.join(CONFIGS, "synthetic_tiny.yaml"))
+
+
+def _perturbed(module, seed):
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for p in module.parameters():
+            p.add_(0.05 * torch.randn(p.shape, generator=gen))
+    return module
+
+
+def _step_card_vs_cpu(solvers, net, loss_fn):
+    """One step's loss terms and gradients on each solver -> compared:
+    the terms and every gradient to 1e-3, each leaf's largest error within
+    1e-4 of its largest |gradient| (fp32, another summation order).  A
+    leaf whose exact gradient is zero (the tiny lr U-Net's conv biases and
+    time shifts before a per-channel norm) holds rounding noise on both
+    sides: below 1e-5 of the step's largest gradient, it must stay below
+    that on both."""
+    res = []
+    for s in solvers:
+        net(s).train()
+        loss, terms = loss_fn(s)
+        loss.backward()
+        res.append(({k: float(v.detach()) for k, v in terms.items()},
+                    {n: p.grad.cpu() for n, p in net(s).named_parameters()}))
+    (t_card, g_card), (t_cpu, g_cpu) = res
+    assert sorted(t_card) == sorted(t_cpu)
+    for k in t_cpu:
+        assert t_card[k] == pytest.approx(t_cpu[k], rel=1e-3, abs=1e-3), k
+    floor = 1e-5 * max(g.abs().max().item() for g in g_cpu.values())
+    for n, g in g_cpu.items():
+        torch.testing.assert_close(g_card[n], g, rtol=1e-3, atol=1e-3,
+                                   msg=n)
+        scale = g.abs().max().item()
+        if scale <= floor:
+            assert g_card[n].abs().max().item() <= floor, n
+            continue
+        assert (g_card[n] - g).abs().max().item() <= 1e-4 * scale, n
+
+
+@pytest.mark.cuda
+def test_vae_train_step_card_matches_cpu(cuda):
+    cfg = _tiny_config()
+    cpu = VAESolver(cfg, device="cpu")
+    _perturbed(cpu.vae, 1)
+    card = VAESolver(cfg)
+    card.vae.load_state_dict(cpu.vae.state_dict())
+    batch = lumpy_sphere_batch(2, 2048, 256, seed=2)
+    eps = torch.randn(cpu.code_shape(2),
+                      generator=torch.Generator().manual_seed(3))
+    n0 = dict(graph_conv_cuda.launches)
+    _step_card_vs_cpu(
+        (card, cpu), lambda s: s.vae,
+        lambda s: s.loss_fn({k: v.to(s.device) for k, v in batch.items()},
+                            eps=eps.to(s.device)))
+    for name in ("graph_conv_fwd", "graph_conv_col", "graph_conv_bwd_dx"):
+        assert graph_conv_cuda.launches[name] > n0[name], name
+
+
+@pytest.mark.cuda
+def test_lr_train_step_card_matches_cpu(cuda):
+    import dataclasses
+
+    cfg = _tiny_config()
+    cfg = dataclasses.replace(cfg, diffusion=dataclasses.replace(
+        cfg.diffusion, lr_pos_weight=1.75))
+    cpu = UnionSolver(cfg, stage_flag="lr", device="cpu")
+    _perturbed(cpu.df, 4)
+    card = UnionSolver(cfg, stage_flag="lr")
+    card.df.load_state_dict(cpu.df.state_dict())
+    batch = lumpy_sphere_batch(2, 2048, 8, seed=5)
+    gen = torch.Generator().manual_seed(6)
+    s = 2**cfg.model.full_depth
+    draws = {"times": torch.rand(2, generator=gen),
+             "noise": torch.randn(2, s, s, s, 8, generator=gen)}
+    _step_card_vs_cpu(
+        (card, cpu), lambda s: s.df,
+        lambda s: s.loss_fn({k: batch[k].to(s.device)
+                             for k in ("points", "normals")},
+                            **{k: v.to(s.device) for k, v in draws.items()}))
+
+
+@pytest.mark.cuda
+def test_training_solvers_default_to_the_card(cuda):
+    cfg = _tiny_config()
+    assert VAESolver(cfg).device.type == "cuda"
+    assert next(VAESolver(cfg).vae.parameters()).is_cuda
+    lr = UnionSolver(cfg, stage_flag="lr")
+    assert lr.device.type == "cuda" and next(lr.df.parameters()).is_cuda

@@ -25,6 +25,7 @@ from octfusion_tpu_torch import evaluate as tevaluate
 from octfusion_tpu_torch.metrics import distances as td
 from octfusion_tpu_torch.metrics import evaluation as tev
 from octfusion_tpu_torch.models.union_solver import UnionSolver
+from octfusion_tpu_torch.models.vae_solver import VAESolver
 from octfusion_tpu_torch.ops import chamfer_cuda, roofline
 from octfusion_tpu_torch.utils import mesh as tmesh
 from octfusion_tpu_torch.utils.shapes import lumpy_sphere_fields
@@ -228,12 +229,17 @@ def test_entry_points_default_to_the_card(monkeypatch):
     cfg = tiny_config(tcfg)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         UnionSolver(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        UnionSolver(cfg, stage_flag="lr")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        VAESolver(cfg)
     pts = np.zeros((2, 4, 3), np.float32)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tev.evaluate_point_sets(pts, pts, emd=False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tevaluate.main(["--samples", "x", "--reference", "y"])
     assert UnionSolver(cfg, device="cpu").device.type == "cpu"
+    assert VAESolver(cfg, device="cpu").device.type == "cpu"
 
 
 def test_roofline_bounds():

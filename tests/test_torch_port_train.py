@@ -2,7 +2,17 @@
 configuration (``configs/synthetic_tiny.yaml`` values; the graph conv's
 gradients are held in ``test_torch_port_conv_grad.py``):
 
-* ``diffusion_loss``, graph and dense forms (1e-5: one fp32 reduction);
+* ``diffusion_loss``, graph and dense forms and the dense form with the
+  lr stage's per-element weights (1e-5: one fp32 reduction);
+* ``octree2split_small`` of a batch-2 octree, exactly;
+* one lr train step of each package (``stage_flag="lr"``) with the same
+  seeded lr U-Net and the JAX step's times and noise, at
+  ``lr_pos_weight`` 1.0 and 1.75 from points and at 1.75 from a
+  precomputed ``split_small``: the loss to 1e-4, the overflow flag where
+  the split was built, and every gradient as in the hr step, but for the
+  leaves whose exact gradient is zero (conv biases and time shifts before
+  a per-channel norm), which must stay below 1e-5 of the step's largest
+  gradient on both sides;
 * one hr train step of each package, with the same seeded
   reference-layout weights (through ``utils/torch_convert.py`` into flax
   and the parameter bridge into the port) and the JAX step's random draws
@@ -50,6 +60,9 @@ GRAD_TOL = dict(rtol=1e-3, atol=1e-3)
 # each leaf's largest gradient error, over that leaf's largest |gradient|:
 # the absolute atol alone would pass a leaf whose gradients are all below it
 GRAD_SCALE_TOL = 1e-4
+# a leaf gradient below this share of the step's largest is fp32 noise
+# (see test_lr_train_step_matches_jax)
+NOISE_FLOOR = 1e-5
 B = 2
 LR_CFG = {"model_channels": 8, "channel_mult": (1, 2),
           "attention_resolutions": (2,)}
@@ -60,10 +73,11 @@ HR_CFG = {"model_channels": 16, "channel_mult": (1, 1),
 # ----------------------------------------------------------------------
 # the loss
 # ----------------------------------------------------------------------
-@pytest.mark.parametrize("form", ["graph", "dense"])
+@pytest.mark.parametrize("form", ["graph", "dense", "dense_weighted"])
 def test_diffusion_loss_matches_jax(form):
     rng = np.random.RandomState(7)
     key = jax.random.PRNGKey(7)
+    weight = None
     if form == "graph":
         x0 = rng.normal(size=(40, 3)).astype(np.float32)
         bid = np.repeat([0, 1, 2], [15, 15, 10]).astype(np.int32)
@@ -74,6 +88,8 @@ def test_diffusion_loss_matches_jax(form):
         x0 = rng.normal(size=(2, 4, 4, 4, 8)).astype(np.float32)
         bid = mask = None
         df_type = "x0"
+        if form == "dense_weighted":
+            weight = np.where(x0 > 0.8, 1.75, 1.0).astype(np.float32)
     bsz = 3 if form == "graph" else 2
     mix = rng.normal(size=(x0.shape[-1], x0.shape[-1])).astype(np.float32)
 
@@ -88,7 +104,8 @@ def test_diffusion_loss_matches_jax(form):
             jdenoise, key, jnp.asarray(x0),
             None if bid is None else jnp.asarray(bid), bsz,
             jschedule.get_log_snr("linear"), df_type,
-            mask=None if mask is None else jnp.asarray(mask))
+            mask=None if mask is None else jnp.asarray(mask),
+            elem_weight=weight)
         # the JAX draws, replicated from its key
         tkey, nkey = jax.random.split(key)
         return (loss, jax.random.uniform(tkey, (bsz,)),
@@ -107,8 +124,28 @@ def test_diffusion_loss_matches_jax(form):
         tdenoise, torch.tensor(x0), tbid, bsz,
         tschedule.get_log_snr("linear"), df_type,
         mask=None if mask is None else torch.tensor(mask),
-        times=torch.tensor(times), noise=torch.tensor(noise))
+        times=torch.tensor(times), noise=torch.tensor(noise),
+        elem_weight=None if weight is None else torch.tensor(weight))
     np.testing.assert_allclose(float(got), float(ref), rtol=1e-5, atol=1e-5)
+
+
+def test_octree2split_small_matches_jax():
+    from octfusion_tpu.octree import split_codec as jsplit
+    from octfusion_tpu_torch.octree import split_codec as tsplit
+
+    from test_torch_port_helpers import make_graph, port_octree
+
+    jg = make_graph(seed=2, n=400)
+    jo = jg.octree
+    want = jax.jit(jsplit.octree2split_small)(jo)
+    got = tsplit.octree2split_small(port_octree(jo))
+    np.testing.assert_array_equal(np_(got), np_(want))
+    occ = np_(got) > 0
+    assert occ.any() and not occ.all()
+    # its inverse regrows the same occupancy
+    regrown = tsplit.split2octree_small(got, port_octree(jo).spec)
+    np.testing.assert_array_equal(np_(tsplit.octree2split_small(regrown)),
+                                  np_(want))
 
 
 # ----------------------------------------------------------------------
@@ -217,6 +254,92 @@ def test_train_step_matches_jax(solvers):
         assert err <= GRAD_SCALE_TOL * scale, (n, err, scale)
     for p in st.df.unet_lr.parameters():
         assert p.grad is None
+
+
+@pytest.fixture(scope="module")
+def lr_setup():
+    """The lr stage of both packages with the same seeded lr U-Net, and a
+    fixed batch of points."""
+    rng = np.random.RandomState(1)
+    params = {"params": {"unet_lr": tc.convert_unet_lr(
+        tru.lr_make_state_dict(rng, LR_CFG), LR_CFG["channel_mult"],
+        LR_CFG["attention_resolutions"])}}
+    pts, nrm = lumpy_spheres(B, 2048, seed=6)
+    return dict(params=params, batch={"points": pts, "normals": nrm},
+                key=jax.random.PRNGKey(11))
+
+
+@pytest.mark.parametrize("source,pos_weight", [("points", 1.0),
+                                               ("points", 1.75),
+                                               ("split_small", 1.75)])
+def test_lr_train_step_matches_jax(lr_setup, source, pos_weight):
+    """One lr step of JAX ``make_train_step`` against the port's, with the
+    JAX loss's times and noise (``sampler.py:226-228``, from the step's
+    key) injected; the JAX gradients read back from AdamW's first
+    moment.  Nothing is frozen in the lr stage."""
+    from octfusion_tpu.models.common import batch_to_octree_jit
+    from octfusion_tpu.octree import split_codec as jsplit
+
+    s = lr_setup
+    cj, ct = tiny_config(jcfg), tiny_config(tcfg)
+    cj = dataclasses.replace(cj, diffusion=dataclasses.replace(
+        cj.diffusion, lr_pos_weight=pos_weight))
+    ct = dataclasses.replace(ct, diffusion=dataclasses.replace(
+        ct.diffusion, lr_pos_weight=pos_weight))
+    sj = JSolver(cj, stage_flag="lr")
+    jbatch = {k: jnp.asarray(np_(v)) for k, v in s["batch"].items()}
+    split = jax.jit(lambda p, n: jsplit.octree2split_small(
+        batch_to_octree_jit(p, n, sj.spec1)))(jbatch["points"],
+                                              jbatch["normals"])
+    batch = dict(s["batch"])
+    if source == "split_small":
+        jbatch = {"split_small": split}
+        batch = {"split_small": torch.tensor(np_(split))}
+    tx = sj.make_optimizer()
+    state = TrainState(step=jnp.asarray(0, jnp.int32), params=s["params"],
+                       opt_state=tx.init(s["params"]),
+                       ema_params=s["params"])
+    new_state, ld = sj.make_train_step()(state, None, jbatch, s["key"])
+    grads = {"params": jax.tree_util.tree_map(
+        lambda m: np_(m) / np.float32(0.1),
+        _first_moment(new_state.opt_state)["params"])}
+
+    @jax.jit
+    def draws(key):
+        tkey, nkey = jax.random.split(key)
+        return (jax.random.uniform(tkey, (B,)),
+                jax.random.normal(nkey, split.shape))
+
+    times, noise = (torch.tensor(np_(a)) for a in draws(s["key"]))
+    st = TSolver(ct, stage_flag="lr", device="cpu")
+    st.df.load_state_dict(bridge.union_state_dict(s["params"], st.union_cfg),
+                          strict=True)
+    out = st.make_train_step()(batch, times=times, noise=noise)
+    np.testing.assert_allclose(float(out["loss"]), float(ld["loss"]),
+                               rtol=1e-4, atol=1e-4)
+    assert sorted(out) == sorted(ld)
+    if source == "points":
+        assert float(out["overflow"]) == float(ld["overflow"]) == 0.0
+
+    ref = bridge.union_state_dict(grads, st.union_cfg)
+    named = dict(st.df.named_parameters())
+    assert sorted(named) == sorted(ref)
+    assert all(n.startswith("unet_lr.") for n in named)
+    # the lr U-Net normalises per channel after its conv biases and time
+    # shifts, so their exact gradients are zero and both packages return
+    # fp32 rounding noise there: a leaf whose largest |gradient| is below
+    # NOISE_FLOOR of the step's largest must be below it on both sides;
+    # every other leaf meets the relative bound
+    floor = NOISE_FLOOR * max(np.abs(np_(g)).max() for g in ref.values())
+    for n, p in named.items():
+        assert p.grad is not None, n
+        want = np_(ref[n]).reshape(p.shape)
+        np.testing.assert_allclose(np_(p.grad), want, err_msg=n, **GRAD_TOL)
+        err, scale = np.abs(np_(p.grad) - want).max(), np.abs(want).max()
+        if scale <= floor:
+            assert np.abs(np_(p.grad)).max() <= floor, (n, scale, floor)
+            continue
+        assert err <= GRAD_SCALE_TOL * scale, (n, err, scale)
 
 
 def test_optimizer_and_ema_match_optax(solvers):
