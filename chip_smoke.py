@@ -1,9 +1,10 @@
 """Smoke run of the PyTorch port (``octfusion_tpu_torch``) on one NVIDIA GPU.
 
-Drives the port's main paths (sampling and hr training at the full width
-of the reference-parity model with seeded random weights, the evaluation
-metrics from meshes at the reference's 2048-point protocol, and the
-DPM-Solver++ generation path with its CLI), and checks the hand-written
+Drives the port's main paths (sampling and the training of every stage
+at the full width of the reference-parity model with seeded random
+weights, the evaluation metrics from meshes at the reference's
+2048-point protocol, the DPM-Solver++ generation path with its CLI, and
+the training CLI on a ShapeNet-format set), and checks the hand-written
 CUDA kernels they run (the graph conv's K1 forward, K2 column buffer, K3
 input gradient and K5 packed forward; the Chamfer kernel K4):
 
@@ -123,7 +124,10 @@ input gradient and K5 packed forward; the Chamfer kernel K4):
    backward) on the card against the CPU at batch 1, all weights
    perturbed with seeded noise, the same injected eps: the loss, every
    term of the loss dict and every gradient at phase 7's tolerances, and
-   every VAE parameter must get a gradient that is not all zero;
+   every VAE parameter must get a gradient that is not all zero.  Both
+   sides run under ``torch.use_deterministic_algorithms``: at the VAE's
+   gradients of ~1e3 the atomic and parallel accumulations moved an
+   element by about the elementwise atol from run to run;
 17. VAE training (``VAESolver.make_train_step`` with the YAML's
    ``model``, ``capacity`` and ``loss``: depth 8, stop 6, out 8,
    checkpointed res blocks, edge_factor 10, ``sdf_reg_loss``, kl 0.1):
@@ -138,12 +142,34 @@ input gradient and K5 packed forward; the Chamfer kernel K4):
    from its trained weights: the SDF grid at the YAML's 256³ must be
    finite and K1 launches = GraphConv calls; then meshes at 64³ into a
    temp dir (barely trained weights decode noise, as phase 13 says of
-   random ones); prints each stage's seconds.
+   random ones); prints each stage's seconds;
+19. the training CLI, ``python -m octfusion_tpu_torch.train`` as
+   subprocesses on a ShapeNet-format set it writes (8 seeded lumpy
+   spheres, 100000 surface points with normals and 100000 SDF samples
+   with gradients each, points scaled by ``data.point_scale`` as the
+   reference's files are) with ``configs/octfusion_snet_uncond.yaml``
+   changed only in ``data.location`` / ``data.filelist``,
+   ``train.print_freq`` 1, ``save_latest_freq`` 2, ``display_freq`` 3 and
+   ``solver.resolution`` 64 (noise meshes, as phase 13): the VAE at batch
+   2 for 3 steps, then resumed to 5; lr at batch 4 for 4 steps; hr at
+   batch 4 for 3 steps with the VAE run as ``--vq_ckpt`` and the lr run
+   as ``--pretrain_ckpt``; generate mode of the hr run (dpmpp-25, one
+   shape) and of the VAE (one reconstruction); then
+   ``python -m octfusion_tpu_torch.tools.vae_recon_eval`` on the VAE run
+   (2 held-out synthetic shapes, their Chamfer distances through K4).
+   ``python -m octfusion_tpu_torch.tools.loader_bench`` measures the
+   loader's own pace.  Each run must exit 0 with finite losses, K1 launches = GraphConv calls and K2 = K3 launches
+   = graph-conv backward calls, no display-eval failure (the display
+   meshes and the generated ones must have faces), the resume at step 3,
+   the hr run's frozen ``unet_lr`` bit for bit the lr run's and its EMA
+   other than its live weights; an overflow stops a run.  Prints each
+   run's summary line and wall, ms/step and ``data_s`` per stage, and
+   the phase's seconds.
 
 Prints the kernel summary as a JSON line (each kernel's ``launches`` is
-its count over the counted runs of phases 5, 8, 12, 17 and 18, K4's over
-phase 10; ``ms``, ``plain_ms``, ``bound_ms`` and ``library_ms`` sum the
-shapes of phases 3, 6 and 15, 9, or 11, K1's and K3's ``gemm_ms`` the
+its count over the counted runs of phases 5, 8, 12, 17, 18 and 19, K4's
+over phases 10 and 19; ``ms``, ``plain_ms``, ``bound_ms`` and
+``library_ms`` sum the shapes of phases 3, 6 and 15, 9, or 11, K1's and K3's ``gemm_ms`` the
 GEMM-alone
 yardstick over the same shapes, and K5's ``k1_ms`` is K1 on phase 11's
 shapes; ``bound_by`` is the larger of the summed operation and byte
@@ -220,6 +246,12 @@ LR_TRAIN_STEPS = 12     # at least 10, the first 2 are warm-up
 VAE_BATCH = 2
 VAE_TRAIN_STEPS = 8     # the first 2 are warm-up
 VAE_MESH_RESOLUTION = 64
+# phase 19
+CLI_DATA_SHAPES = 8
+CLI_DATA_POINTS = 100000   # surface points and SDF samples per shape file
+CLI_TRAIN_RESOLUTION = 64  # SDF grid of the display evals and generate
+CLI_TIMEOUT = 600          # seconds per CLI run
+CLI_RECON_SHAPES = 2       # held-out shapes of tools/vae_recon_eval
 REPO = os.path.dirname(os.path.abspath(__file__))
 _CSRC = "octfusion_tpu_torch/csrc"
 SOURCES = {"graph_conv_fwd": f"{_CSRC}/graph_conv.cu",
@@ -569,14 +601,18 @@ def compare_steps(label, runs, prefix):
         torch.testing.assert_close(torch.tensor(l_card[k]),
                                    torch.tensor(l_cpu[k]), **TOL_STEP,
                                    msg=k)
-    worst, worst_rel = 0.0, 0.0
+    worst, worst_rel, worst_share = 0.0, 0.0, 0.0
     for n, g in g_card.items():
         g = g.cpu()
         torch.testing.assert_close(g, g_cpu[n], **TOL_STEP, msg=n)
         err = (g - g_cpu[n]).abs().max().item()
         scale = g_cpu[n].abs().max().item()
-        print(f"grad {n} max_abs_cpu={scale:.3e} max_abs_err={err:.3e}",
-              flush=True)
+        # the worst element's error over the error assert_close allows it
+        share = ((g - g_cpu[n]).abs() / (TOL_STEP["atol"] + TOL_STEP["rtol"]
+                                         * g_cpu[n].abs())).max().item()
+        worst_share = max(worst_share, share)
+        print(f"grad {n} max_abs_cpu={scale:.3e} max_abs_err={err:.3e} "
+              f"share_of_tol={share:.3f}", flush=True)
         # relative to the leaf's own scale: the absolute atol above would
         # pass any leaf whose gradients are all below it
         if not err <= TOL_GRAD_SCALE * scale:
@@ -592,7 +628,8 @@ def compare_steps(label, runs, prefix):
     print(f"{label} card vs cpu B=1: loss card={l_card['loss']:.6f} "
           f"cpu={l_cpu['loss']:.6f}"
           f" params={len(g_card)} grad max_abs_err={worst:.3e} "
-          f"max_err_over_leaf_max={worst_rel:.3e} tol=rtol "
+          f"max_err_over_leaf_max={worst_rel:.3e} "
+          f"share_of_tol={worst_share:.3f} tol=rtol "
           f"{TOL_STEP['rtol']:g} atol {TOL_STEP['atol']:g} and err <= "
           f"{TOL_GRAD_SCALE:g} * leaf max card_s={t_card:.3f} "
           f"cpu_s={t_cpu:.3f}",
@@ -832,7 +869,12 @@ def vae_setup(seed):
 
 def check_vae_step(solver, cfg, batch, seed):
     """Phase 16: one full-width VAE train step's loss terms and gradients,
-    card vs CPU at batch 1, from the same perturbed weights and eps."""
+    card vs CPU at batch 1, from the same perturbed weights and eps, both
+    under deterministic algorithms.  The VAE's gradients reach ~1e3, where
+    the atomic and parallel accumulations (``index_add_``, ``index_put_``
+    with ``accumulate``) change an element's fp32 sum from run to run by
+    about the elementwise atol itself; deterministically, each side gives
+    the same bits on every run, and the kernels are unchanged."""
     from octfusion_tpu_torch.models.vae_solver import VAESolver
 
     cpu = VAESolver(cfg, device="cpu")
@@ -844,10 +886,14 @@ def check_vae_step(solver, cfg, batch, seed):
     eps = torch.randn(cpu.code_shape(1),
                       generator=torch.Generator().manual_seed(seed + 13))
     runs = {}
-    for name, sol in (("card", card), ("cpu", cpu)):
-        sol.vae.train()
-        runs[name] = timed_step(sol.vae, lambda: sol.loss_fn(
-            to_device(one, sol.device), eps=eps.to(sol.device)))
+    torch.use_deterministic_algorithms(True)
+    try:
+        for name, sol in (("card", card), ("cpu", cpu)):
+            sol.vae.train()
+            runs[name] = timed_step(sol.vae, lambda: sol.loss_fn(
+                to_device(one, sol.device), eps=eps.to(sol.device)))
+    finally:
+        torch.use_deterministic_algorithms(False)
     compare_steps("vae_step", runs, "")
 
 
@@ -1274,8 +1320,10 @@ def check_cli(solver, cfg, seed):
     from octfusion_tpu_torch.utils import ckpt, params
 
     with tempfile.TemporaryDirectory() as root:
+        # untrained weights: the EMA a trainer would hold is the weights
         ckpt_path = ckpt.save(os.path.join(root, "ckpt"),
-                              params.union_checkpoint(solver.df), step=0)
+                              params.union_checkpoint(solver.df, ema=None),
+                              step=0)
         vae_path = ckpt.save(
             os.path.join(root, "vae"),
             {"autoencoder": {n: v.cpu() for n, v in
@@ -1329,6 +1377,211 @@ def check_cli(solver, cfg, seed):
                                  "every mesh")
     print(f"cli: {CLI_SHAPES} non-empty meshes, bytes {sizes}; the rerun "
           "skipped all of them", flush=True)
+
+
+def cli_config(root, location, filelist) -> str:
+    """Phase 19's YAML: ``configs/octfusion_snet_uncond.yaml`` with the
+    changes its first line lists."""
+    from octfusion_tpu_torch.config import dump_config, load_config
+
+    cfg = load_config(TRAIN_CONFIG)
+    cfg = dataclasses.replace(
+        cfg, data=dataclasses.replace(cfg.data, location=location,
+                                      filelist=filelist),
+        train=dataclasses.replace(cfg.train, print_freq=1,
+                                  save_latest_freq=2, display_freq=3),
+        solver=dataclasses.replace(cfg.solver,
+                                   resolution=CLI_TRAIN_RESOLUTION))
+    path = os.path.join(root, "config.yaml")
+    dump_config(cfg, path)
+    with open(path) as fh:
+        body = fh.read()
+    with open(path, "w") as fh:
+        fh.write("# configs/octfusion_snet_uncond.yaml with these changes: "
+                 "data.location and data.filelist (a seeded lumpy-sphere\n"
+                 "# set), train.print_freq 1, train.save_latest_freq 2, "
+                 f"train.display_freq 3, solver.resolution "
+                 f"{CLI_TRAIN_RESOLUTION}\n# (barely trained weights decode "
+                 "noise, whose 256^3 mesh is ~10^8 faces of text)\n" + body)
+    return path
+
+
+def run_cli(label, argv):
+    """One ``python -m octfusion_tpu_torch.train`` run -> (its stdout
+    lines, the key=value fields of its last ``[*] trained`` or ``[*]
+    generated`` line, the wall seconds).  Raises if it fails or a display
+    eval failed."""
+    cmd = [sys.executable, "-m", "octfusion_tpu_torch.train", *argv]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
+                         timeout=CLI_TIMEOUT)
+    wall = time.perf_counter() - t0
+    lines = res.stdout.splitlines()
+    if res.returncode != 0:
+        raise AssertionError(f"{label} failed ({res.returncode}):\n"
+                             + "\n".join(lines[-20:])
+                             + f"\n{res.stderr[-3000:]}")
+    if any("display eval failed" in ln for ln in lines):
+        raise AssertionError(f"{label}: a display eval failed:\n"
+                             f"{res.stdout[-3000:]}")
+    summary = [ln for ln in lines if ln.startswith(("[*] trained",
+                                                    "[*] generated"))]
+    if not summary:
+        raise AssertionError(f"{label}: no summary line:\n"
+                             + "\n".join(lines[-20:]))
+    fields = dict(tok.split("=", 1) for tok in summary[-1].split()
+                  if "=" in tok)
+    print(f"cli {label}: wall_s={wall:.3f} | {summary[-1]}", flush=True)
+    return lines, fields, wall
+
+
+def run_recon_eval(root, cfg_path) -> dict:
+    """``python -m octfusion_tpu_torch.tools.vae_recon_eval`` on phase
+    19's VAE run: ``CLI_RECON_SHAPES`` held-out synthetic shapes at
+    ``CLI_TRAIN_RESOLUTION``, scored by K4 -> its JSON line.  Raises unless
+    it exits 0, keeps every shape and gives each a finite Chamfer
+    distance."""
+    cmd = [sys.executable, "-m", "octfusion_tpu_torch.tools.vae_recon_eval",
+           "--config", cfg_path, "--run", os.path.join(root, "vae"),
+           "--out", os.path.join(root, "recon"), "--count",
+           str(CLI_RECON_SHAPES), "--resolution", str(CLI_TRAIN_RESOLUTION)]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
+                         timeout=CLI_TIMEOUT)
+    wall = time.perf_counter() - t0
+    if res.returncode != 0:
+        raise AssertionError(f"vae_recon_eval failed ({res.returncode}):\n"
+                             f"{res.stdout[-3000:]}\n{res.stderr[-3000:]}")
+    out = json.loads(res.stdout.splitlines()[-1])
+    if (len(out["shapes"]) != CLI_RECON_SHAPES
+            or not all(math.isfinite(cd) for cd in out["cd"])
+            or out["chamfer_launches"] < 1):
+        raise AssertionError(f"vae_recon_eval: {out}")
+    print(f"cli vae_recon_eval: wall_s={wall:.3f} shapes={out['shapes']} "
+          f"cd={out['cd']} chamfer_launches={out['chamfer_launches']}",
+          flush=True)
+    return out
+
+
+def check_cli_launches(label, f) -> dict:
+    """A training run's losses must be finite, K1 launches = GraphConv
+    calls and K2 = K3 launches = graph-conv backward calls -> its K1 / K2
+    / K3 launches."""
+    for k in ("loss_first", "loss_last"):
+        if not math.isfinite(float(f[k])):
+            raise AssertionError(f"{label}: {k} = {f[k]}")
+    got = {k: int(f[f"{k}_launches"]) for k in
+           ("graph_conv_fwd", "graph_conv_col", "graph_conv_bwd_dx")}
+    calls, bwd = int(f["graph_conv_calls"]), int(
+        f["graph_conv_backward_calls"])
+    if got["graph_conv_fwd"] != calls or not (
+            got["graph_conv_col"] == got["graph_conv_bwd_dx"] == bwd):
+        raise AssertionError(f"{label}: launches {got} vs GraphConv calls "
+                             f"{calls} and backward calls {bwd}")
+    return got
+
+
+def nonempty_mesh(path) -> int:
+    """-> the faces of the ``.obj`` at ``path``; raises if it has none."""
+    with open(path) as fh:
+        faces = sum(ln.startswith("f ") for ln in fh)
+    if not faces:
+        raise AssertionError(f"{path} has no face")
+    return faces
+
+
+def check_train_cli(seed) -> dict:
+    """Phase 19: the training CLI at the reference-parity widths on a
+    ShapeNet-format set: the VAE (then resumed), lr and hr stages
+    (grafted, with the VAE as ``--vq_ckpt``), then generate mode of the
+    union model and of the VAE, then the VAE's reconstruction Chamfer ->
+    the runs' K1 / K2 / K3 / K4 launches."""
+    from octfusion_tpu_torch.config import load_config
+    from octfusion_tpu_torch.utils import ckpt
+    from octfusion_tpu_torch.utils.shapes import write_shapenet_set
+
+    t_phase = time.perf_counter()
+    launches = dict.fromkeys(("graph_conv_fwd", "graph_conv_col",
+                              "graph_conv_bwd_dx"), 0)
+    with tempfile.TemporaryDirectory() as root:
+        location, filelist = write_shapenet_set(
+            os.path.join(root, "data"), CLI_DATA_SHAPES, CLI_DATA_POINTS,
+            load_config(TRAIN_CONFIG).data.point_scale, seed)
+        cfg_path = cli_config(root, location, filelist)
+        base = ["--config", cfg_path, "--logs_dir", root, "--seed",
+                str(seed)]
+        vae_ckpt = os.path.join(root, "vae", "ckpt", "steps-latest")
+        lr_ckpt = os.path.join(root, "lr", "ckpt", "steps-latest")
+        runs = [
+            ("vae train", ["--model", "vae", "--name", "vae",
+                           "--batch_size", "2", "--max_steps", "3"]),
+            ("vae resume", ["--model", "vae", "--name", "vae",
+                            "--batch_size", "2", "--max_steps", "5"]),
+            ("lr train", ["--model", "union", "--stage", "lr", "--name",
+                          "lr", "--batch_size", "4", "--max_steps", "4"]),
+            ("hr train", ["--model", "union", "--stage", "hr", "--name",
+                          "hr", "--batch_size", "4", "--max_steps", "3",
+                          "--vq_ckpt", vae_ckpt, "--pretrain_ckpt",
+                          lr_ckpt]),
+            ("hr generate", ["--model", "union", "--stage", "hr", "--name",
+                             "hr", "--mode", "generate", "--count", "1",
+                             "--sampler", "dpmpp", "--sample_steps",
+                             str(DPMPP_STEPS), "--vq_ckpt", vae_ckpt]),
+            ("vae generate", ["--model", "vae", "--name", "vae", "--mode",
+                              "generate", "--count", "1"]),
+        ]
+        out = {}
+        for label, argv in runs:
+            out[label] = run_cli(label, base + argv)
+            fields = out[label][1]
+            if label.endswith("generate"):
+                launches["graph_conv_fwd"] += int(
+                    fields.get("graph_conv_fwd_launches", 0))
+                continue
+            for k, v in check_cli_launches(label, fields).items():
+                launches[k] += v
+        if not any("at step 3" in ln and ln.startswith("[*] resumed")
+                   for ln in out["vae resume"][0]):
+            raise AssertionError("the second VAE run did not resume at 3")
+        if int(out["vae resume"][1]["steps"]) != 2:
+            raise AssertionError("the resumed VAE run did not take 2 steps")
+        if not any(ln.startswith("[*] grafted unet_lr")
+                   for ln in out["hr train"][0]):
+            raise AssertionError("the hr run grafted no unet_lr")
+        # the graft (as the JAX package's train.py:219-234): the frozen
+        # unet_lr is the lr run's, bit for bit, through hr training
+        lr_tree = ckpt.restore(lr_ckpt)
+        hr_tree = ckpt.restore(os.path.join(root, "hr", "ckpt",
+                                            "steps-latest"))
+        for k, v in lr_tree["df_unet_lr"].items():
+            if not torch.equal(hr_tree["df_unet_lr"][k], v):
+                raise AssertionError(f"hr run's unet_lr.{k} changed")
+        if all(torch.equal(v, hr_tree["ema_df_unet_hr"][k])
+               for k, v in hr_tree["df_unet_hr"].items()):
+            raise AssertionError("the hr checkpoint's EMA is its live "
+                                 "weights")
+        recon = run_recon_eval(root, cfg_path)
+        launches["chamfer"] = recon["chamfer_launches"]
+        faces = {
+            "vae display": nonempty_mesh(os.path.join(
+                root, "vae", "train_temp", "recon_3.obj")),
+            "hr display": nonempty_mesh(os.path.join(
+                root, "hr", "train_temp", "sample_3.obj")),
+            "hr generate": nonempty_mesh(os.path.join(
+                root, "hr", "results_airplane", "0.obj")),
+            "vae generate": nonempty_mesh(os.path.join(
+                root, "vae", "results_airplane", "0.obj")),
+        }
+    for label in ("vae train", "vae resume", "lr train", "hr train"):
+        f = out[label][1]
+        print(f"cli {label}: ms_per_step={f['ms_per_step']} "
+              f"data_s={f['data_s']} first_data_s={f['first_data_s']} "
+              f"loss {f['loss_first']} -> "
+              f"{f['loss_last']} wall_s={out[label][2]:.3f}", flush=True)
+    print(f"cli meshes (faces): {faces}; phase 19 "
+          f"{time.perf_counter() - t_phase:.1f} s; launches {launches}",
+          flush=True)
+    return launches
 
 
 def main(argv=None):
@@ -1489,6 +1742,10 @@ def main(argv=None):
     launches["chamfer"] = check_evaluation(args.seed)
     measured["graph_conv_fwd_packed"] = k5
     launches["graph_conv_fwd_packed"] = k5_launches
+
+    # ---- 19. the training CLI -----------------------------------------
+    for name, n in check_train_cli(args.seed).items():
+        launches[name] += n
 
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)

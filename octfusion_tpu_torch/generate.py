@@ -29,7 +29,6 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import os
-import resource
 import statistics
 import time
 
@@ -37,16 +36,13 @@ import numpy as np
 import torch
 
 from . import config as config_lib
+from .data.shapenet import category_5_to_label
 from .models.union_solver import UnionSolver
 from .ops import graph_conv_cuda
 from .utils import ckpt as ckpt_lib
 from .utils import params as params_lib
 from .utils import sdf as sdf_utils
-from .utils.device import resolve_device, use_fp32_math
-
-# the ShapeNet class labels of the JAX package's data/shapenet.py
-CATEGORY_5_TO_LABEL = {"airplane": 0, "car": 1, "chair": 2, "table": 3,
-                       "rifle": 4}
+from .utils.device import peak_memory, resolve_device, use_fp32_math
 
 
 def parse_args(argv=None):
@@ -72,7 +68,9 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def _configure(args) -> config_lib.Config:
+def configure(args) -> config_lib.Config:
+    """The config file of ``args.config`` with the run name, logs
+    directory, sampler and sampling steps of ``args`` where given."""
     cfg = config_lib.load_config(args.config)
     train = {k: v for k, v in (("name", args.name),
                                ("logs_dir", args.logs_dir)) if v}
@@ -103,19 +101,11 @@ def _load_weights(solver, args, ckpt_dir) -> None:
         print("[warn] no --vq_ckpt given; using random VAE weights")
 
 
-def _peak_memory(dev) -> str:
-    if dev.type == "cuda":
-        peak = torch.cuda.max_memory_allocated(dev)
-        return f"peak_memory_bytes={peak} ({peak / 2**30:.2f} GiB)"
-    rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
-    return f"host_peak_rss_bytes={rss}"
-
-
 def main(argv=None):
     args = parse_args(argv)
     dev = resolve_device(args.device)
     use_fp32_math()
-    cfg = _configure(args)
+    cfg = configure(args)
     run_dir = os.path.join(cfg.train.logs_dir, cfg.train.name)
     rdir = os.path.join(run_dir, f"results_{args.category}")
     os.makedirs(rdir, exist_ok=True)
@@ -133,7 +123,7 @@ def main(argv=None):
     _load_weights(solver, args, os.path.join(run_dir, "ckpt"))
     label = None
     if cfg.diffusion.num_classes is not None:
-        label = torch.full((1,), CATEGORY_5_TO_LABEL[args.category],
+        label = torch.full((1,), category_5_to_label[args.category],
                            dtype=torch.int64, device=dev)
 
     m, sscale = cfg.model, cfg.solver.sdf_scale
@@ -170,14 +160,21 @@ def main(argv=None):
         written.append(path)
         print(f"[*] wrote {path}", flush=True)
 
-    per_shape = {k: statistics.mean(s[k] for s in stages) for k in stages[0]}
-    print(f"[*] generated {len(stages)} shapes on {dev}: "
-          f"s_per_shape={sum(per_shape.values()):.3f} "
-          + " ".join(f"{k}_s={v:.3f}" for k, v in per_shape.items())
-          + "".join(f" {k}_launches={n}"
-                    for k, n in graph_conv_cuda.launches.items() if n)
-          + " " + _peak_memory(dev), flush=True)
+    print(summary(stages, dev), flush=True)
     return written
+
+
+def summary(stages, dev) -> str:
+    """The closing line of a generation run: the mean seconds per shape
+    of each stage in ``stages`` (one dict per shape) and their sum, the
+    graph-conv kernels' launches and the peak memory."""
+    per_shape = {k: statistics.mean(s[k] for s in stages) for k in stages[0]}
+    return (f"[*] generated {len(stages)} shapes on {dev}: "
+            f"s_per_shape={sum(per_shape.values()):.3f} "
+            + " ".join(f"{k}_s={v:.3f}" for k, v in per_shape.items())
+            + "".join(f" {k}_launches={n}"
+                      for k, n in graph_conv_cuda.launches.items() if n)
+            + " " + peak_memory(dev))
 
 
 if __name__ == "__main__":

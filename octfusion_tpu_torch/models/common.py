@@ -1,6 +1,7 @@
 """Batch -> octree / dual graph preparation shared by the solvers (port
 of ``batch_to_octree`` / ``batch_to_graph`` / ``flatten_pos`` in
-``octfusion_tpu/models/common.py``), and their stage timer.  Everything
+``octfusion_tpu/models/common.py``), a loader batch's move to the
+device, and the solvers' stage timer.  Everything
 runs on the points' device: per-sample octree builds, their merge and the
 dual-graph construction are index math that never waits for the host."""
 
@@ -30,6 +31,21 @@ def batch_to_graph(points: torch.Tensor, normals: torch.Tensor,
     octree = batch_to_octree(points, normals, spec_single)
     graph: DualGraph = build_dual_graph(octree, edge_factor, up_to=up_to)
     return octree, graph
+
+
+def batch_to_device(batch: Dict, device) -> Dict[str, torch.Tensor]:
+    """A collated numpy batch (``data/dataset.collate``) as tensors on
+    ``device``: ``filename`` dropped, ``label`` int64 (an embedding index;
+    the collate gives int32), every other array (``points``, ``normals``,
+    ``pos`` / ``sdf`` / ``grad``, ``split_small``, ``point_colors``) as it
+    is."""
+    out = {}
+    for k, v in batch.items():
+        if k == "filename":
+            continue
+        t = torch.as_tensor(v)
+        out[k] = t.to(device, torch.int64 if k == "label" else t.dtype)
+    return out
 
 
 def code_shape(cfg, batch_size: int):

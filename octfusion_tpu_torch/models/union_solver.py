@@ -20,6 +20,7 @@ compile warm-up have no counterpart here.
 
 from __future__ import annotations
 
+import contextlib
 import os
 from typing import Dict, Optional
 
@@ -307,8 +308,9 @@ class TrainStep:
     graph, the frozen encoder under ``torch.no_grad``, the hr loss; lr:
     the split grid and the lr loss) and its backward, an AdamW step,
     StepLR and an EMA update of the U-Nets' parameters with
-    ``diffusion.ema_rate``.  Holds the optimizer state and the EMA
-    (``ema``: name -> tensor over every parameter of ``solver.df``)."""
+    ``diffusion.ema_rate``.  Holds the optimizer state, the EMA (``ema``:
+    name -> tensor over every parameter of ``solver.df``) and ``step``,
+    the updates applied so far."""
 
     def __init__(self, solver: UnionSolver):
         self.solver = solver
@@ -316,6 +318,7 @@ class TrainStep:
         self.ema_rate = solver.cfg.diffusion.ema_rate
         self.ema = {n: p.detach().clone()
                     for n, p in solver.df.named_parameters()}
+        self.step = 0
 
     def apply_gradients(self) -> None:
         """The optimizer, schedule and EMA updates from the ``.grad`` of
@@ -324,6 +327,42 @@ class TrainStep:
         self.scheduler.step()
         ema_lib.ema_update(self.ema, dict(self.solver.df.named_parameters()),
                            self.ema_rate)
+        self.step += 1
+
+    def state_dict(self) -> Dict:
+        """The training state beside the weights: ``step``, the AdamW and
+        StepLR state dicts and the EMA tensors (by parameter name)."""
+        return {"step": self.step, "optimizer": self.optimizer.state_dict(),
+                "scheduler": self.scheduler.state_dict(),
+                "ema": {n: e.detach() for n, e in self.ema.items()}}
+
+    def load_state_dict(self, state: Dict) -> None:
+        """Restore :meth:`state_dict`'s entries (the weights of
+        ``solver.df`` are loaded apart).  Every EMA tensor must be there;
+        the optimizer's moments come back on their parameters' device."""
+        self.optimizer.load_state_dict(state["optimizer"])
+        self.scheduler.load_state_dict(state["scheduler"])
+        with torch.no_grad():
+            for n, e in self.ema.items():
+                e.copy_(state["ema"][n])
+        self.step = int(state["step"])
+
+    @contextlib.contextmanager
+    def ema_weights(self):
+        """Run the block with the EMA in ``solver.df``'s parameters (as
+        the JAX package samples from ``ema_params``); the live weights
+        come back after it."""
+        named = dict(self.solver.df.named_parameters())
+        live = {n: p.detach().clone() for n, p in named.items()}
+        with torch.no_grad():
+            for n, p in named.items():
+                p.copy_(self.ema[n])
+        try:
+            yield
+        finally:
+            with torch.no_grad():
+                for n, p in named.items():
+                    p.copy_(live[n])
 
     def __call__(self, batch, times=None, noise=None, eps=None,
                  generator=None, timed: bool = False) -> Dict:

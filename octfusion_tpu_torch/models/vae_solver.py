@@ -134,18 +134,41 @@ class VAESolver:
 
 class VAETrainStep:
     """One optimisation step of the VAE: the loss and its backward, an
-    AdamW step and the poly decay.  Holds the optimizer and its
-    scheduler."""
+    AdamW step and the poly decay.  Holds the optimizer, its scheduler
+    and ``step``, the updates applied so far."""
 
     def __init__(self, solver: VAESolver, total_steps: int):
         self.solver = solver
         self.optimizer, self.scheduler = solver.make_optimizer(total_steps)
+        self.step = 0
 
     def apply_gradients(self) -> None:
         """The optimizer and schedule updates from the ``.grad`` of the
         VAE's parameters."""
         self.optimizer.step()
         self.scheduler.step()
+        self.step += 1
+
+    def state_dict(self) -> Dict:
+        """The training state beside the weights: ``step`` and the AdamW
+        and poly-decay state dicts."""
+        return {"step": self.step, "optimizer": self.optimizer.state_dict(),
+                "scheduler": self.scheduler.state_dict()}
+
+    def load_state_dict(self, state: Dict) -> None:
+        """Restore :meth:`state_dict`'s entries (the VAE's weights are
+        loaded apart).  The decay goes on from the restored step under
+        this step's ``total_steps``, which may differ from the saved run's,
+        as optax's schedule recomputes its rate from the restored count."""
+        self.optimizer.load_state_dict(state["optimizer"])
+        self.scheduler.load_state_dict(state["scheduler"])
+        k = self.scheduler.last_epoch
+        rates = [base * fn(k) for base, fn in zip(self.scheduler.base_lrs,
+                                                  self.scheduler.lr_lambdas)]
+        for group, lr in zip(self.optimizer.param_groups, rates):
+            group["lr"] = lr
+        self.scheduler._last_lr = rates
+        self.step = int(state["step"])
 
     def __call__(self, batch, eps=None, generator=None,
                  timed: bool = False) -> Dict:

@@ -3,6 +3,8 @@ the CPU) and the precision it computes in (fp32, as the reference)."""
 
 from __future__ import annotations
 
+import resource
+
 import torch
 
 
@@ -24,3 +26,14 @@ def use_fp32_math() -> None:
     run a float32 convolution in TF32 unless told otherwise."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+
+
+def peak_memory(dev) -> str:
+    """``peak_memory_bytes=N (x GiB)``: the card's peak allocation since
+    the last ``torch.cuda.reset_peak_memory_stats``; on the CPU the
+    process's peak resident set, named as such."""
+    if dev.type == "cuda":
+        peak = torch.cuda.max_memory_allocated(dev)
+        return f"peak_memory_bytes={peak} ({peak / 2**30:.2f} GiB)"
+    rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+    return f"host_peak_rss_bytes={rss}"

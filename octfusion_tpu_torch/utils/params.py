@@ -16,7 +16,8 @@ imports JAX.
 
 from __future__ import annotations
 
-from typing import Dict
+import os
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -262,19 +263,59 @@ def union_state_dict(params: Dict, union_cfg) -> Dict[str, torch.Tensor]:
 # ----------------------------------------------------------------------
 # the reference's checkpoint layout (octfusion_model_union.py:501-523)
 # ----------------------------------------------------------------------
-def union_checkpoint(df: torch.nn.Module) -> Dict:
-    """A ``UNetUnion``'s weights in the reference's checkpoint layout:
-    ``df_unet_<kind>`` and ``ema_df_unet_<kind>`` (the same weights) state
-    dicts on the host under the reference keys, for each U-Net ``df``
-    holds."""
+def union_checkpoint(df: torch.nn.Module,
+                     ema: Optional[Dict[str, torch.Tensor]] = None) -> Dict:
+    """A ``UNetUnion``'s weights in the reference's checkpoint layout, for
+    each U-Net ``df`` holds: ``df_unet_<kind>``, its live state dict, and
+    ``ema_df_unet_<kind>``, the same keys with each parameter taken from
+    ``ema`` (name in ``df`` -> tensor, as ``TrainStep.ema`` holds them;
+    buffers stay live, and a parameter missing from ``ema`` raises).  Without ``ema`` both entries hold the live
+    weights.  Tensors on the host, under the reference keys."""
     tree = {}
     for kind in ("lr", "hr"):
         net = getattr(df, f"unet_{kind}", None)
-        if net is not None:
-            sd = {k: v.detach().cpu() for k, v in net.state_dict().items()}
-            tree[f"df_unet_{kind}"] = sd
+        if net is None:
+            continue
+        sd = {k: v.detach().cpu() for k, v in net.state_dict().items()}
+        tree[f"df_unet_{kind}"] = sd
+        if ema is None:
             tree[f"ema_df_unet_{kind}"] = sd
+            continue
+        params = {n for n, _ in net.named_parameters()}
+        tree[f"ema_df_unet_{kind}"] = {
+            k: ema[f"unet_{kind}.{k}"].detach().cpu() if k in params else v
+            for k, v in sd.items()}
     return tree
+
+
+def union_ema(tree: Dict) -> Dict[str, torch.Tensor]:
+    """The ``ema_df_unet_*`` entries of a reference-layout checkpoint as
+    one dict keyed by the parameter names of ``UNetUnion``
+    (``unet_<kind>.<key>``), as ``TrainStep.ema`` holds them."""
+    return {f"unet_{kind}.{k}": v for kind in ("lr", "hr")
+            for k, v in tree.get(f"ema_df_unet_{kind}", {}).items()}
+
+
+def graft_union_checkpoint(df: torch.nn.Module,
+                           ema: Dict[str, torch.Tensor], tree: Dict,
+                           kinds=("lr",)) -> list:
+    """Stage bootstrap (``train.py:219-234`` of the JAX package; the
+    reference's ``octfusion_model_union.py:127-128``): for each U-Net kind
+    of ``kinds`` that both ``df`` and the checkpoint ``tree`` hold, load
+    ``df_unet_<kind>`` into ``df.unet_<kind>`` and ``ema_df_unet_<kind>``
+    into its entries of ``ema``.  Strict.  -> the kinds grafted."""
+    grafted = []
+    for kind in kinds:
+        net = getattr(df, f"unet_{kind}", None)
+        if net is None or f"df_unet_{kind}" not in tree:
+            continue
+        net.load_state_dict(tree[f"df_unet_{kind}"], strict=True)
+        src = tree[f"ema_df_unet_{kind}"]
+        with torch.no_grad():
+            for n, _ in net.named_parameters():
+                ema[f"unet_{kind}.{n}"].copy_(src[n])
+        grafted.append(kind)
+    return grafted
 
 
 def load_union_checkpoint(df: torch.nn.Module, tree: Dict,
@@ -300,7 +341,14 @@ def load_union_checkpoint(df: torch.nn.Module, tree: Dict,
 
 
 def load_vae_checkpoint(vae: torch.nn.Module, path: str) -> None:
-    """Load a VAE ``.pth`` into ``vae``: the reference's checkpoint (its
-    ``autoencoder`` entry) or a bare state dict.  Strict."""
+    """Load a VAE checkpoint file into ``vae``: the reference's ``.pth``
+    or this package's trainer checkpoint (their ``autoencoder`` entry), or
+    a bare state dict.  Strict.  The JAX package's orbax checkpoint
+    directories cannot be read here (that needs orbax): a directory
+    raises."""
+    if os.path.isdir(path):
+        raise ValueError(
+            f"{path} is a directory (an orbax checkpoint of the JAX "
+            "package?); the port reads torch checkpoint files only")
     raw = ckpt_lib.restore(path)
     vae.load_state_dict(raw.get("autoencoder", raw), strict=True)

@@ -5,6 +5,9 @@ the evaluation path)."""
 
 from __future__ import annotations
 
+import os
+
+import numpy as np
 import torch
 
 
@@ -109,3 +112,29 @@ def lumpy_sphere_fields(batch_size: int, resolution: int, seed: int = 0,
     r = p.norm(dim=-1)
     t = torch.einsum("xyzk,bk->bxyz", p / r.clamp(min=1e-9)[..., None], axis)
     return (r - (radius + amp * torch.sin(freq * t))).to(device)
+
+
+def write_shapenet_set(root: str, n_shapes: int, n_points: int,
+                       point_scale: float, seed: int = 0):
+    """``n_shapes`` seeded lumpy spheres in the reference's per-shape
+    ShapeNet layout under ``root`` (``pointcloud.npz``: ``n_points``
+    surface points scaled by ``point_scale`` as the files are, with exact
+    normals; ``sdf.npz``: as many SDF samples with exact gradients, the
+    value of the field in the loader's [-1, 1] frame) and a filelist ->
+    (location, filelist), for ``data.location`` / ``data.filelist``."""
+    pts, nrm = lumpy_spheres(n_shapes, n_points, seed)
+    sdf = lumpy_sphere_sdf_samples(n_shapes, n_points, seed,
+                                   points_per_shape=n_points)
+    names = [f"02691156/lumpy_{i}" for i in range(n_shapes)]
+    for i, name in enumerate(names):
+        d = os.path.join(root, name)
+        os.makedirs(d)
+        np.savez(os.path.join(d, "pointcloud.npz"),
+                 points=pts[i].numpy() * point_scale, normals=nrm[i].numpy())
+        np.savez(os.path.join(d, "sdf.npz"),
+                 points=sdf["pos"][i].numpy() * point_scale,
+                 sdf=sdf["sdf"][i].numpy(), grad=sdf["grad"][i].numpy())
+    filelist = os.path.join(root, "filelist.txt")
+    with open(filelist, "w") as fh:
+        fh.write("".join(f"{name}\n" for name in names))
+    return root, filelist

@@ -8,6 +8,7 @@ import dataclasses
 
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from octfusion_tpu import config as jcfg  # noqa: F401  (re-exported)
@@ -29,6 +30,18 @@ TINY = dict(
                    num_res_blocks=((1, 1), (1, 0)),
                    attention_resolutions=(2,)),
 )
+
+
+@pytest.fixture(scope="module")
+def one_torch_thread():
+    """PyTorch on one intra-op thread for a module's tests, restored
+    after: the suite runs several workers on the CPU's cores at once, and
+    an oversubscribed thread pool made small-step training tests ~50x
+    slower there (1 s alone, 80 s beside five busy workers)."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(saved)
 
 
 def tiny_config(mod):

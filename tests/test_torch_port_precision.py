@@ -1,8 +1,8 @@
 """The port's entry points compute in fp32, as the reference does
-(``compute_dtype: float32``): ``UnionSolver(...)``, ``generate.main`` and
-``evaluate.main`` turn off TF32 for float32 matmuls and cuDNN
-convolutions, whatever the flags were before (PyTorch lets cuDNN run a
-float32 convolution in TF32 by default).  On the CPU, with both flags set
+(``compute_dtype: float32``): ``UnionSolver(...)``, ``train.main``,
+``generate.main`` and ``evaluate.main`` turn off TF32 for float32
+matmuls and cuDNN convolutions, whatever the flags were before (PyTorch
+lets cuDNN run a float32 convolution in TF32 by default).  On the CPU, with both flags set
 to True first; the card-only test of the lr denoise step in
 ``test_torch_port_cuda.py`` checks the numbers.  No JAX here."""
 
@@ -12,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-from octfusion_tpu_torch import evaluate, generate
+from octfusion_tpu_torch import evaluate, generate, train
 from octfusion_tpu_torch.config import load_config
 from octfusion_tpu_torch.models.union_solver import UnionSolver
 from octfusion_tpu_torch.utils import mesh
@@ -47,6 +47,12 @@ def _tetrahedra(root, n):
 def _run(entry, tmp_path):
     if entry == "solver":
         UnionSolver(load_config(TINY_YAML), device="cpu")
+    elif entry == "train":
+        stats = train.main([
+            "--model", "union", "--stage", "lr", "--config", TINY_YAML,
+            "--name", "fp32", "--logs_dir", str(tmp_path), "--max_steps",
+            "1", "--device", "cpu"])
+        assert len(stats["loss"]) == 1
     elif entry == "generate":
         written = generate.main([
             "--config", TINY_YAML, "--name", "fp32", "--logs_dir",
@@ -61,7 +67,8 @@ def _run(entry, tmp_path):
         assert 0.0 <= res["cov_cd"] <= 1.0
 
 
-@pytest.mark.parametrize("entry", ["solver", "generate", "evaluate"])
+@pytest.mark.parametrize("entry", ["solver", "train", "generate",
+                                   "evaluate"])
 def test_entry_points_turn_tf32_off(entry, tmp_path, tf32_on):
     _run(entry, tmp_path)
     assert torch.backends.cuda.matmul.allow_tf32 is False
