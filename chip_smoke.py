@@ -3,8 +3,9 @@
 Drives the port's main paths (sampling and the training of every stage
 at the full width of the reference-parity model with seeded random
 weights, the evaluation metrics from meshes at the reference's
-2048-point protocol, the DPM-Solver++ generation path with its CLI, and
-the training CLI on a ShapeNet-format set), and checks the hand-written
+2048-point protocol, the DPM-Solver++ generation path with its CLI,
+the training CLI on a ShapeNet-format set, and the 3-stage model at the
+Objaverse widths, decoded to depth 10), and checks the hand-written
 CUDA kernels they run (the graph conv's K1 forward, K2 column buffer, K3
 input gradient and K5 packed forward; the Chamfer kernel K4):
 
@@ -164,16 +165,50 @@ input gradient and K5 packed forward; the Chamfer kernel K4):
    the hr run's frozen ``unet_lr`` bit for bit the lr run's and its EMA
    other than its live weights; an overflow stops a run.  Prints each
    run's summary line and wall, ms/step and ``data_s`` per stage, and
-   the phase's seconds.
+   the phase's seconds;
+20. the 3-stage solver (``Union3TSolver``) at the obja-3t-d10
+   configuration: ``configs/octfusion_obja_uncond.yaml``'s diffusion
+   (lr 64 ch, hr 128 ch on split_large, feature 64 ch; input depths 4 / 6
+   / 8; x0; batch 2) over ``configs/vae_obja_depth1084.yaml``'s depth-10
+   VAE and caps (finest_cap 1048576; ``profile_step.config_3t``), seeded
+   weights perturbed with seeded noise, lumpy spheres at
+   ``profile_step.SHAPE_SCALE_3T`` (0.8) of their size (at full size
+   they overflow the depth-6 cap).  (a) K1 vs plain at every
+   (level, C, C') of a 2-step warm-up cascade (levels 4-10: the hr and
+   feature U-Nets and the decoder to depth 10) and of the batch-2
+   training graph (the frozen encoder at levels 8-10, the U-Nets), K5 at
+   the sampling shapes of levels 4-8, K2 and K3 at the train steps' (the
+   frozen hr U-Net's included), as phases 3, 6 and 11 do; the graphs'
+   lines hold each level's CSR to its int32 offsets.  (b) The 3-hop
+   cascade at batch 1 from the split grid of a seeded lumpy sphere (random
+   lr weights fill half the grid, which overflows the depth-5/6 caps):
+   ``--steps`` (200) ancestral steps per stage, decode to depth 10, 256³
+   SDF grid; K1 launches = GraphConv calls, stage seconds (lr, grow6, hr,
+   grow8, feature, decode, sdf), node counts d4-d10, the overflow flags of
+   both grown graphs and the decoded one (an overflow truncates, as in the
+   JAX package), peak memory; finite codes and SDF.  Then dpmpp-25 with
+   ``kpack``: K5 launches = the GraphConv calls on packed levels (both
+   grown graphs), K1 launches = the rest.  (c) One hr (split_large) and
+   one feature train step at batch 2, card vs CPU from the same weights
+   and draws, both under ``torch.use_deterministic_algorithms``, at phase
+   7's tolerances; then ``TRAIN_STEPS_3T`` (4) steps of each on the card
+   (as phase 8: finite, falling loss, launches = calls), the frozen
+   U-Nets (``unet_lr``; and ``unet_hr`` in the feature stage) bit for
+   bit.  (d) ``python -m octfusion_tpu_torch.train --model union_3t`` on a
+   ShapeNet-format set: lr, hr grafted from it, feature grafted from the
+   hr run with a seeded depth-10 VAE checkpoint as ``--vq_ckpt``, then
+   generate (dpmpp-25, one shape at 64³): each exits 0, the feature
+   checkpoint holds ``df_unet_feature`` with an EMA other than it and the
+   hr run's ``unet_lr`` / ``unet_hr``, the mesh has faces.
 
 Prints the kernel summary as a JSON line (each kernel's ``launches`` is
-its count over the counted runs of phases 5, 8, 12, 17, 18 and 19, K4's
-over phases 10 and 19; ``ms``, ``plain_ms``, ``bound_ms`` and
-``library_ms`` sum the shapes of phases 3, 6 and 15, 9, or 11, K1's and K3's ``gemm_ms`` the
-GEMM-alone
-yardstick over the same shapes, and K5's ``k1_ms`` is K1 on phase 11's
-shapes; ``bound_by`` is the larger of the summed operation and byte
-times; every bound is ``roofline.bound_times``: the operations at
+its count over the counted runs of phases 5, 8, 12, 17, 18, 19 and 20,
+K4's over phases 10 and 19; ``ms``, ``plain_ms``, ``bound_ms`` and
+``library_ms`` sum the shapes of phases 3, 6, 15 and 20, 9, or 11 and
+20, K1's and K3's ``gemm_ms`` the GEMM-alone yardstick over the same
+shapes, and K5's ``k1_ms`` is K1 on phases 11's and 20's shapes;
+``bound_by`` is the larger of the summed operation and byte times; every
+bound is ``roofline.bound_times``: the operations at
 ``roofline.FLOPS_RATE``, the rate of the units the kernel runs on, and
 K4's minima at ``roofline.MINIMA_RATE``), then the card's name and power
 limit, and last
@@ -252,6 +287,11 @@ CLI_DATA_POINTS = 100000   # surface points and SDF samples per shape file
 CLI_TRAIN_RESOLUTION = 64  # SDF grid of the display evals and generate
 CLI_TIMEOUT = 600          # seconds per CLI run
 CLI_RECON_SHAPES = 2       # held-out shapes of tools/vae_recon_eval
+# phase 20
+TRAIN_STEPS_3T = 4      # per stage; the first 2 are warm-up
+CLI_3T_SHAPES = 4
+CLI_3T_STEPS = 2        # per training run
+INT32_MAX = 2**31 - 1   # the CSR's offsets and edge indices are int32
 REPO = os.path.dirname(os.path.abspath(__file__))
 _CSRC = "octfusion_tpu_torch/csrc"
 SOURCES = {"graph_conv_fwd": f"{_CSRC}/graph_conv.cu",
@@ -583,7 +623,7 @@ def timed_step(net, loss_fn):
                       if p.requires_grad}, secs)
 
 
-def compare_steps(label, runs, prefix):
+def compare_steps(label, runs, prefix, batch_size: int = 1):
     """Phases 7, 14 and 16: one train step's loss terms and every gradient,
     card (``runs["card"]``) vs CPU (``runs["cpu"]``), each (terms,
     gradients, seconds) from :func:`timed_step`.  Every parameter whose
@@ -625,7 +665,8 @@ def compare_steps(label, runs, prefix):
         print(f"{label} terms card / cpu: " + " ".join(
             f"{k}={l_card[k]:.6f}/{l_cpu[k]:.6f}" for k in sorted(l_card)),
             flush=True)
-    print(f"{label} card vs cpu B=1: loss card={l_card['loss']:.6f} "
+    print(f"{label} card vs cpu B={batch_size}: loss card="
+          f"{l_card['loss']:.6f} "
           f"cpu={l_cpu['loss']:.6f}"
           f" params={len(g_card)} grad max_abs_err={worst:.3e} "
           f"max_err_over_leaf_max={worst_rel:.3e} "
@@ -708,19 +749,27 @@ def run_training(solver, batch, draws, n_steps):
     return launches
 
 
-def print_graph(label, g) -> None:
-    """A training graph's node counts, vertex and edge counts and each
-    level's largest CSR and transposed-CSR slot; raises if it
-    overflows."""
+def print_graph(label, g, allow_overflow: bool = False) -> None:
+    """A graph's node counts, vertex and edge counts and each level's
+    largest CSR and transposed-CSR slot, held to the CSR's int32 offsets
+    (7 G + 1 slot pointers and E edges below 2^31; a slot's edges are
+    staged in pieces of at most 1024, so a piece's 16-bit count holds
+    whatever the slot's size); raises if the graph overflows unless
+    ``allow_overflow``."""
     print(f"{label} graph: nnum " + " ".join(
         f"d{d}={int(n)}" for d, n in enumerate(g.octree.nnum.tolist()))
         + " G " + " ".join(f"d{lvl.d}={lvl.g_cap}" for lvl in g.levels)
         + " E " + " ".join(f"d{lvl.d}={int(lvl.n_edges)}" for lvl in g.levels)
         + " largest slot (csr/csr_t) " + " ".join(
             f"d{lvl.d}={int(lvl.csr()[0].diff().max())}/"
-            f"{int(lvl.csr_t()[0].diff().max())}" for lvl in g.levels),
-        flush=True)
-    if g.any_overflow().item():
+            f"{int(lvl.csr_t()[0].diff().max())}" for lvl in g.levels)
+        + f" overflow={bool(g.any_overflow())}", flush=True)
+    for lvl in g.levels:
+        if 7 * lvl.g_cap + 1 > INT32_MAX or int(lvl.n_edges) > INT32_MAX:
+            raise AssertionError(f"{label}: level {lvl.d} exceeds the CSR's "
+                                 f"int32 offsets (G={lvl.g_cap}, "
+                                 f"E={int(lvl.n_edges)})")
+    if g.any_overflow().item() and not allow_overflow:
         raise AssertionError(f"the {label} batch's graph overflows")
 
 
@@ -1584,6 +1633,348 @@ def check_train_cli(seed) -> dict:
     return launches
 
 
+def lumpy_batch_3t(cfg, batch_size, seed):
+    """``batch_size`` seeded lumpy spheres of ``data.points_per_shape``
+    points on the card, at ``profile_step.SHAPE_SCALE_3T`` of their size,
+    so that they fit the Objaverse caps (at full size they overflow depth
+    6)."""
+    from octfusion_tpu_torch.profile_step import SHAPE_SCALE_3T
+    from octfusion_tpu_torch.utils.shapes import lumpy_spheres
+
+    pts, nrm = lumpy_spheres(batch_size, cfg.data.points_per_shape, seed,
+                             device=torch.device("cuda"))
+    return {"points": pts * SHAPE_SCALE_3T, "normals": nrm}
+
+
+def split_small_3t(solver, seed):
+    """The split grid [1, 16, 16, 16, 8] of a seeded lumpy sphere's octree
+    (random lr weights give a grid about half full, which overflows the
+    depth-5/6 caps)."""
+    from octfusion_tpu_torch.models.common import batch_to_octree
+    from octfusion_tpu_torch.octree import split_codec
+
+    b = lumpy_batch_3t(solver.cfg, 1, seed)
+    octree = batch_to_octree(b["points"], b["normals"], solver.spec1)
+    if octree.overflow.any():
+        raise AssertionError("the lumpy sphere overflows the 3-stage caps")
+    return split_codec.octree2split_small(octree)
+
+
+def count_packed_calls(nets):
+    """Forward hooks counting the GraphConv calls on packed levels ->
+    (the handles, a one-element counter)."""
+    from octfusion_tpu_torch.nn.modules import GraphConv
+
+    n = [0]
+
+    def hook(mod, args, out):
+        n[0] += bool(args[1].packed)
+
+    return [mod.register_forward_hook(hook) for net in nets
+            for mod in net.modules() if isinstance(mod, GraphConv)], n
+
+
+def print_cascade_3t(label, out, wall, launches, calls) -> None:
+    """A 3-stage cascade's stage seconds, launches, node counts per depth,
+    overflow flags and peak memory."""
+    octree = out["decode_out"]["octree_out"]
+    peak = torch.cuda.max_memory_allocated()
+    print(f"{label}: wall_s={wall:.3f} "
+          + " ".join(f"{n}_s={v:.3f}" for n, v in out["seconds"].items())
+          + f" k1_launches={launches['graph_conv_fwd']} k5_launches="
+          f"{launches['graph_conv_fwd_packed']} graph_conv_calls={calls} "
+          "nnum " + " ".join(f"d{d}={int(n)}" for d, n in
+                             enumerate(octree.nnum.tolist()) if d >= 4)
+          + f" overflow grow6={bool(out['overflow_small'])} grow8="
+          f"{bool(out['overflow_large'])} decoded="
+          f"{bool(out['decode_out']['graph_out'].any_overflow())} "
+          f"per_depth={octree.overflow.int().tolist()} "
+          f"peak_memory_bytes={peak} ({peak / 2**30:.2f} GiB)", flush=True)
+    if not (torch.isfinite(out["code"]).all()
+            and torch.isfinite(out["sdfs"]).all()):
+        raise AssertionError(f"{label}: non-finite codes or SDF")
+
+
+def train_setup_3t(cfg, solver, seed):
+    """Phase 20(c)'s hr and feature trainers with ``solver``'s (perturbed)
+    weights, their batch-2 batch, fixed draws, the batch's full-depth graph
+    and the (level, C, C') of the convs of each step: the frozen encoder's
+    (K1) and the diffusion U-Nets' (K1, K2, K3)."""
+    from octfusion_tpu_torch.models.union_3t_solver import Union3TSolver
+
+    dev = torch.device("cuda")
+    b = cfg.data.batch_size
+    batch = lumpy_batch_3t(cfg, b, seed + 22)
+    gen = torch.Generator(device=dev).manual_seed(seed + 23)
+    trainers, draws = {}, {}
+    for stage in ("hr", "feature"):
+        t = Union3TSolver(cfg, stage, device=dev)
+        t.df.load_state_dict({k: v for k, v in solver.df.state_dict().items()
+                              if getattr(t.df, k.split(".")[0]) is not None})
+        t.vae.load_state_dict(solver.vae.state_dict())
+        shape = t.train_shape(b)
+        draws[stage] = {"times": torch.rand(b, device=dev, generator=gen),
+                        "noise": torch.randn(shape, device=dev,
+                                             generator=gen)}
+        if stage == "feature":
+            draws[stage]["eps"] = torch.randn(shape, device=dev,
+                                              generator=gen)
+        trainers[stage] = t
+    g = trainers["feature"].batch_graph(batch)
+    print_graph("3t train", g)
+    enc, df = set(), set()
+    hooks = (conv_shape_hooks([trainers["feature"].vae], enc)
+             + conv_shape_hooks([t.df for t in trainers.values()], df))
+    with torch.no_grad():
+        for stage, t in trainers.items():
+            t.loss_fn(batch, **draws[stage])
+    for h in hooks:
+        h.remove()
+    return trainers, batch, draws, g, enc, df
+
+
+def check_train_3t(cfg, trainers, batch, draws, seed):
+    """Phase 20(c): per stage, one step card vs CPU (both deterministic)
+    from the same weights and draws, then ``TRAIN_STEPS_3T`` steps on the
+    card; the frozen U-Nets stay bit for bit -> the steps' launches."""
+    from octfusion_tpu_torch.models.union_3t_solver import Union3TSolver
+    from octfusion_tpu_torch.models.union_solver import FROZEN
+
+    launches = {}
+    for stage, card in trainers.items():
+        cpu = Union3TSolver(cfg, stage, device="cpu")
+        cpu.df.load_state_dict(card.df.state_dict())
+        cpu.vae.load_state_dict(card.vae.state_dict())
+        runs = {}
+        torch.use_deterministic_algorithms(True)
+        try:
+            for name, sol in (("card", card), ("cpu", cpu)):
+                sol.df.train()
+                for kind in FROZEN[stage]:
+                    getattr(sol.df, f"unet_{kind}").requires_grad_(False)
+                runs[name] = timed_step(sol.df, lambda: sol.loss_fn(
+                    to_device(batch, sol.device),
+                    **to_device(draws[stage], sol.device)))
+        finally:
+            torch.use_deterministic_algorithms(False)
+        compare_steps(f"3t {stage}_step", runs, f"unet_{stage}.",
+                      batch_size=batch["points"].shape[0])
+        del cpu, runs
+        frozen = {n: p.detach().clone() for n, p in
+                  card.df.named_parameters()
+                  if not n.startswith(f"unet_{stage}.")}
+        got = run_steps(f"3t {stage} train", card.make_train_step(), batch,
+                        TRAIN_STEPS_3T, True, **draws[stage])
+        for n, p in card.df.named_parameters():
+            if n in frozen and not torch.equal(p, frozen[n]):
+                raise AssertionError(f"3t {stage}: frozen {n} changed")
+        print(f"3t {stage} train: frozen "
+              f"{sorted({n.split('.')[0] for n in frozen})} bit for bit",
+              flush=True)
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+    return launches
+
+
+def check_cli_3t(cfg, solver, seed) -> dict:
+    """Phase 20(d): ``python -m octfusion_tpu_torch.train --model
+    union_3t``: lr, hr grafted from it, feature grafted from the hr run
+    with a seeded depth-10 VAE as ``--vq_ckpt``, then generate (dpmpp-25)
+    -> the runs' K1 / K2 / K3 launches."""
+    from octfusion_tpu_torch.config import dump_config
+    from octfusion_tpu_torch.profile_step import SHAPE_SCALE_3T
+    from octfusion_tpu_torch.utils import ckpt
+    from octfusion_tpu_torch.utils.shapes import write_shapenet_set
+
+    t_phase = time.perf_counter()
+    launches = dict.fromkeys(("graph_conv_fwd", "graph_conv_col",
+                              "graph_conv_bwd_dx"), 0)
+    with tempfile.TemporaryDirectory() as root:
+        # files hold points times data.point_scale: these read back at
+        # SHAPE_SCALE_3T of the spheres' size
+        location, filelist = write_shapenet_set(
+            os.path.join(root, "data"), CLI_3T_SHAPES, CLI_DATA_POINTS,
+            cfg.data.point_scale * SHAPE_SCALE_3T, seed)
+        cfg_path = os.path.join(root, "config.yaml")
+        dump_config(dataclasses.replace(
+            cfg, data=dataclasses.replace(cfg.data, location=location,
+                                          filelist=filelist),
+            train=dataclasses.replace(cfg.train, print_freq=1,
+                                      save_latest_freq=CLI_3T_STEPS,
+                                      display_freq=0),
+            solver=dataclasses.replace(cfg.solver,
+                                       resolution=CLI_TRAIN_RESOLUTION)),
+            cfg_path)
+        vae_path = ckpt.save(
+            os.path.join(root, "vae10"),
+            {"autoencoder": {n: v.cpu() for n, v in
+                             solver.vae.state_dict().items()}}, step=0)
+        ck = lambda name: os.path.join(root, name, "ckpt", "steps-latest")
+        base = ["--config", cfg_path, "--logs_dir", root, "--seed",
+                str(seed), "--model", "union_3t"]
+        steps = ["--max_steps", str(CLI_3T_STEPS)]
+        runs = [
+            ("3t lr train", ["--stage", "lr", "--name", "lr", *steps]),
+            ("3t hr train", ["--stage", "hr", "--name", "hr", *steps,
+                             "--pretrain_ckpt", ck("lr")]),
+            ("3t feature train", ["--stage", "feature", "--name", "feat",
+                                  *steps, "--vq_ckpt", vae_path,
+                                  "--pretrain_ckpt", ck("hr")]),
+            ("3t feature generate", ["--stage", "feature", "--name", "feat",
+                                     "--mode", "generate", "--count", "1",
+                                     "--sampler", "dpmpp", "--sample_steps",
+                                     str(DPMPP_STEPS), "--vq_ckpt",
+                                     vae_path]),
+        ]
+        out = {}
+        for label, argv in runs:
+            out[label] = run_cli(label, base + argv)
+            fields = out[label][1]
+            if label.endswith("generate"):
+                launches["graph_conv_fwd"] += int(
+                    fields.get("graph_conv_fwd_launches", 0))
+                continue
+            for k, v in check_cli_launches(label, fields).items():
+                launches[k] += v
+        for kind in ("lr", "hr"):
+            if not any(ln.startswith(f"[*] grafted unet_{kind}")
+                       for ln in out["3t feature train"][0]):
+                raise AssertionError(f"the feature run grafted no "
+                                     f"unet_{kind}")
+        trees = {n: ckpt.restore(ck(n)) for n in ("hr", "feat")}
+        feat = trees["feat"]
+        if not {"df_unet_feature", "ema_df_unet_feature"} <= set(feat):
+            raise AssertionError(f"feature checkpoint keys {sorted(feat)}")
+        if all(torch.equal(v, feat["ema_df_unet_feature"][k])
+               for k, v in feat["df_unet_feature"].items()):
+            raise AssertionError("the feature checkpoint's EMA is its live "
+                                 "weights")
+        for kind in ("lr", "hr"):
+            for k, v in trees["hr"][f"df_unet_{kind}"].items():
+                if not torch.equal(feat[f"df_unet_{kind}"][k], v):
+                    raise AssertionError(f"the feature run's unet_{kind}.{k}"
+                                         " is not the hr run's")
+        faces = nonempty_mesh(os.path.join(root, "feat", "results_airplane",
+                                           "0.obj"))
+    for label in ("3t lr train", "3t hr train", "3t feature train"):
+        f = out[label][1]
+        print(f"cli {label}: ms_per_step={f['ms_per_step']} "
+              f"data_s={f['data_s']} loss {f['loss_first']} -> "
+              f"{f['loss_last']} wall_s={out[label][2]:.3f}", flush=True)
+    print(f"cli 3t: feature checkpoint holds df_unet_feature and its EMA; "
+          f"generated mesh faces={faces}; phase 20(d) "
+          f"{time.perf_counter() - t_phase:.1f} s; launches {launches}",
+          flush=True)
+    return launches
+
+
+def check_three_stage(seed, steps):
+    """Phase 20: the 3-stage solver at the obja-3t-d10 configuration ->
+    ({kernel: KernelStats} at its shapes, {kernel: launches} of its
+    counted runs)."""
+    from octfusion_tpu_torch.models.union_3t_solver import Union3TSolver
+    from octfusion_tpu_torch.nn.modules import GraphConv
+    from octfusion_tpu_torch.ops import graph_conv_cuda as k
+    from octfusion_tpu_torch.profile_step import config_3t
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    cfg = config_3t()
+    torch.manual_seed(seed)
+    solver = Union3TSolver(cfg, device=dev)
+    # the zero-initialised output convs would make split_large all zero,
+    # which grows nothing below depth 6
+    perturb_([solver.df, solver.vae], torch.Generator().manual_seed(seed + 20))
+    split = split_small_3t(solver, seed)
+    gen = torch.Generator(device=dev)
+
+    # ---- (a) the kernels at the sampling and training shapes -----------
+    shapes = set()
+    hooks = conv_shape_hooks([solver.df, solver.vae], shapes)
+    warm = solver.sample(steps=2, split_small=split, kpack=False,
+                         compute_sdf=False,
+                         generator=gen.manual_seed(seed + 1))
+    for h in hooks:
+        h.remove()
+    g_dec = warm["decode_out"]["graph_out"]
+    print_graph("3t warm-up decode", g_dec, allow_overflow=True)
+    kgen = torch.Generator(device=dev).manual_seed(seed + 21)
+    measured = {"graph_conv_fwd": check_kernel(g_dec, shapes, kgen)}
+    measured["graph_conv_fwd"].summary("k1 phase 20 (3-stage sampling)")
+    measured["graph_conv_fwd_packed"] = check_packed_kernel(
+        warm["graph"], {sh for sh in shapes if sh[0] <= solver.code_depth},
+        kgen)
+    measured["graph_conv_fwd_packed"].summary("k5 phase 20 (3-stage "
+                                              "sampling)")
+    del warm, g_dec
+    trainers, batch, draws, g_train, enc, df = train_setup_3t(cfg, solver,
+                                                              seed)
+    k1_train = check_kernel(g_train, enc | df, kgen)
+    k1_train.summary("k1 phase 20 (3-stage training)")
+    measured["graph_conv_fwd"].merge(k1_train)
+    measured.update(check_backward_kernels(g_train, df, kgen))
+    for name, label in (("graph_conv_col", "k2 phase 20 (3-stage training)"),
+                        ("graph_conv_bwd_dx",
+                         "k3 phase 20 (3-stage training)")):
+        measured[name].summary(label)
+    del g_train
+
+    # ---- (b) the 3-hop cascade, then dpmpp-25 with K5 ------------------
+    launches = dict.fromkeys(measured, 0)
+    for sampler_name, kpack, n in (("ancestral", False, steps),
+                                   ("dpmpp", True, DPMPP_STEPS)):
+        run = solver
+        if sampler_name == "dpmpp":
+            run = Union3TSolver(dataclasses.replace(
+                cfg, diffusion=dataclasses.replace(cfg.diffusion,
+                                                   sampler="dpmpp")),
+                device=dev)
+            run.df.load_state_dict(solver.df.state_dict())
+            run.vae.load_state_dict(solver.vae.state_dict())
+        hooks, packed = count_packed_calls([run.df, run.vae])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        k.reset_launches()
+        GraphConv.calls = 0
+        t0 = time.perf_counter()
+        out = run.sample(steps=n, split_small=split, resolution=RESOLUTION,
+                         kpack=kpack, generator=gen.manual_seed(seed))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got, calls = dict(k.launches), GraphConv.calls
+        for h in hooks:
+            h.remove()
+        label = f"3t cascade {sampler_name} {n}+{n}+{n} kpack={kpack}"
+        print_cascade_3t(label, out, wall, got, calls)
+        print(f"{label}: graph_conv_calls_on_packed_levels={packed[0]}",
+              flush=True)
+        if kpack:
+            ok = (got["graph_conv_fwd_packed"] == packed[0] > 0
+                  and got["graph_conv_fwd"] == calls - packed[0] > 0)
+        else:
+            ok = got["graph_conv_fwd"] == calls > 0
+            print_graph("3t decode", out["decode_out"]["graph_out"],
+                        allow_overflow=True)
+        if not ok:
+            raise AssertionError(f"{label}: launches {got} vs {calls} "
+                                 f"GraphConv calls, {packed[0]} packed")
+        for name in launches:
+            launches[name] += got[name]
+        del out, run
+
+    # ---- (c) the train steps -----------------------------------------
+    for name, n in check_train_3t(cfg, trainers, batch, draws, seed).items():
+        launches[name] += n
+    del trainers
+
+    # ---- (d) the CLI --------------------------------------------------
+    for name, n in check_cli_3t(cfg, solver, seed).items():
+        launches[name] += n
+    print(f"phase 20: {time.perf_counter() - t_phase:.1f} s; launches "
+          f"{launches}", flush=True)
+    return measured, launches
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=200,
@@ -1746,6 +2137,12 @@ def main(argv=None):
     # ---- 19. the training CLI -----------------------------------------
     for name, n in check_train_cli(args.seed).items():
         launches[name] += n
+
+    # ---- 20. the 3-stage solver at obja-3t-d10 -------------------------
+    measured_3t, launches_3t = check_three_stage(args.seed, args.steps)
+    for name, stats in measured_3t.items():
+        measured[name].merge(stats)
+        launches[name] += launches_3t[name]
 
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)

@@ -170,3 +170,13 @@ def dump_config(cfg: Config, path: str):
 
     with open(path, "w") as fh:
         yaml.safe_dump(dataclasses.asdict(cfg), fh, sort_keys=False)
+
+
+def with_vae(cfg: Config, vae_cfg: Config) -> Config:
+    """``cfg`` with the ``model`` and ``capacity`` of ``vae_cfg``: a
+    diffusion config paired with the VAE it runs over.  The 3-stage
+    Objaverse model is ``configs/octfusion_obja_uncond.yaml`` over
+    ``configs/vae_obja_depth1084.yaml`` (the first alone sets depth_stop
+    6, which its ``input_depth[2]`` of 8 contradicts)."""
+    return dataclasses.replace(cfg, model=vae_cfg.model,
+                               capacity=vae_cfg.capacity)

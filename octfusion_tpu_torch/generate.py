@@ -1,12 +1,15 @@
 """Generate shapes with the union diffusion model: the counterpart of
-``train.py --model union --stage hr --mode generate`` on one device.
+``train.py --model union --stage hr --mode generate`` (and of ``--model
+union_3t --stage feature``) on one device.
 
     python -m octfusion_tpu_torch.generate \\
         --config configs/octfusion_snet_uncond.yaml --name run --count 4 \\
         --sampler dpmpp --sample_steps 25 [--device cpu]
 
 Each shape runs the whole cascade (``UnionSolver.sample``: lr sampling,
-grow, hr sampling, growing decode), then the SDF grid and marching
+grow, hr sampling, growing decode; with a 3-stage config, whose
+``diffusion.unet_type`` is lr, hr, feature, ``Union3TSolver.sample``: lr,
+grow6, hr, grow8, feature, decode), then the SDF grid and marching
 tetrahedra on the device, and is written to
 ``<logs_dir>/<name>/results_<category>/<i>.obj``.  The diffusion model takes
 the EMA weights of ``--ckpt`` or of the run's latest checkpoint
@@ -16,7 +19,8 @@ Without them the weights are random, seeded from ``--seed``.  Shape i
 draws its noise from a generator seeded from (seed, i) alone, so it does
 not depend on ``--count`` or on which shapes were made before; indices
 whose ``.obj`` exists are skipped.  ``OCTFUSION_CONV_KPACK=1`` runs the
-depth-``depth_stop`` graph convs through the packed kernel K5.
+convs of the grown graphs (up to ``depth_stop``) through the packed
+kernel K5.
 
 Runs on the card unless ``--device cpu``; without a card the default
 raises.  Computes in fp32 with TF32 off, as the reference.  Prints ``[*] wrote <path>`` per mesh, then one line with the
@@ -37,6 +41,7 @@ import torch
 
 from . import config as config_lib
 from .data.shapenet import category_5_to_label
+from .models.union_3t_solver import Union3TSolver
 from .models.union_solver import UnionSolver
 from .ops import graph_conv_cuda
 from .utils import ckpt as ckpt_lib
@@ -119,7 +124,10 @@ def main(argv=None):
         return []
 
     torch.manual_seed(args.seed)
-    solver = UnionSolver(cfg, stage_flag="hr", device=dev)
+    if tuple(cfg.diffusion.unet_type)[:3] == ("lr", "hr", "feature"):
+        solver = Union3TSolver(cfg, stage_flag="feature", device=dev)
+    else:
+        solver = UnionSolver(cfg, stage_flag="hr", device=dev)
     _load_weights(solver, args, os.path.join(run_dir, "ckpt"))
     label = None
     if cfg.diffusion.num_classes is not None:

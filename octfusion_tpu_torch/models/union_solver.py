@@ -45,6 +45,11 @@ def use_kpack() -> bool:
     return os.environ.get("OCTFUSION_CONV_KPACK", "0") == "1"
 
 
+# the U-Nets each stage's training freezes (the JAX package's
+# ``optax.set_to_zero`` subtrees, ``union_3t_solver.py:74-98``)
+FROZEN = {"lr": (), "hr": ("lr",), "feature": ("lr", "hr")}
+
+
 class UnionSolver:
     def __init__(self, cfg: Config, stage_flag: str = "hr", device="cuda"):
         """Runs on the card unless ``device="cpu"``; without a card the
@@ -74,7 +79,8 @@ class UnionSolver:
             embed_dim=m.embed_dim, resblk_num=m.resblk_num,
             channels=tuple(m.channels), use_checkpoint=m.use_checkpoint,
         ).to(self.device).eval()
-        if "hr" in d.unet_type:
+        if "hr" in d.unet_type and "feature" not in d.unet_type:
+            # (the 3-stage model's hr stage denoises split_large instead)
             i = d.unet_type.index("hr")
             assert d.input_channels[i] == m.embed_dim, (
                 "hr stage denoises VAE codes: diffusion.input_channels[hr] "
@@ -84,6 +90,8 @@ class UnionSolver:
         self.spec1 = cfg.capacity.octree_spec(m.depth, m.full_depth, 1)
         self.edge_factor = cfg.capacity.edge_factor
         self.log_snr = schedule.get_log_snr(d.noise_schedule)
+        # the depth the lr split grid is grown to: the hr stage's graph
+        # (the 3-stage solver sets input_depth[1])
         self.small_depth = m.depth_stop
         self.df_type = dict(zip(d.unet_type, d.df_type))
 
@@ -168,13 +176,17 @@ class UnionSolver:
                       "overflow": g.any_overflow().to(torch.float32)}
 
     def make_optimizer(self):
-        """AdamW + StepLR(1000, 0.9) over the trainable parameters.  The hr
-        stage freezes the lr U-Net: it is left out of the optimizer (no
-        update, no weight decay) and gets no gradient, while gradients
-        still flow through its activations.  The lr stage trains all of
-        ``df`` (the lr U-Net alone)."""
-        if self.stage_flag == "hr" and self.df.unet_lr is not None:
-            self.df.unet_lr.requires_grad_(False)
+        """AdamW + StepLR(1000, 0.9) over the trainable parameters.  Each
+        stage freezes the U-Nets of the stages before it (:data:`FROZEN`:
+        the hr stage the lr U-Net, the 3-stage feature stage the lr and hr
+        U-Nets): they are left out of the optimizer (no update, no weight
+        decay) and get no gradient, while gradients still flow through
+        their activations.  The lr stage trains all of ``df`` (the lr
+        U-Net alone)."""
+        for kind in FROZEN[self.stage_flag]:
+            net = getattr(self.df, f"unet_{kind}")
+            if net is not None:
+                net.requires_grad_(False)
         t = self.cfg.train
         opt = torch.optim.AdamW(
             [p for p in self.df.parameters() if p.requires_grad], lr=t.lr,

@@ -1,9 +1,12 @@
 """Union wrapper bundling the per-stage U-Nets
-(port of the lr/hr stages of ``octfusion_tpu/nn/unet_union.py``).
+(port of ``octfusion_tpu/nn/unet_union.py``).
 
 Stages are configured by parallel per-stage lists; construction stops at
 ``stage_flag``.  The lr stage's public layout is NDHWC, as in the JAX
-package; the lr U-Net itself runs NCDHW.
+package; the lr U-Net itself runs NCDHW.  The hr U-Net's middle is the lr
+U-Net run body-only; the 3-stage model's feature U-Net (a graph U-Net at
+``input_depth[2]``) has the whole hr U-Net, without its input and output
+convs and without its own middle, as its middle.
 """
 
 from __future__ import annotations
@@ -45,6 +48,7 @@ class UNetUnion(nn.Module):
         self.config = config
         self.unet_lr = None
         self.unet_hr = None
+        self.unet_feature = None
         cfg = config
         for i, kind in enumerate(cfg.unet_type):
             if kind == "lr":
@@ -58,8 +62,8 @@ class UNetUnion(nn.Module):
                     num_heads=cfg.num_heads,
                     num_classes=cfg.num_classes,
                 )
-            elif kind == "hr":
-                self.unet_hr = unet_hr.UNetHR(
+            elif kind in ("hr", "feature"):
+                net = unet_hr.UNetHR(
                     input_depth=cfg.input_depth[i],
                     full_depth=cfg.full_depth,
                     in_channels=cfg.input_channels[i],
@@ -71,8 +75,9 @@ class UNetUnion(nn.Module):
                     num_classes=cfg.num_classes,
                     use_checkpoint=cfg.use_checkpoint,
                 )
+                setattr(self, f"unet_{kind}", net)
             else:
-                raise NotImplementedError(f"stage {kind!r} is not ported yet")
+                raise ValueError(kind)
             if kind == stage_flag:
                 break
 
@@ -91,4 +96,10 @@ class UNetUnion(nn.Module):
                         if with_lr_middle else None)
             return self.unet_hr(x, g, timesteps, lr_apply=lr_apply,
                                 label=label)
+        if unet_type == "feature":
+            hr_apply = ((lambda h, gg, d, t, lb: self.unet_hr(
+                h, gg, t, lr_apply=None, label=lb, as_middle=True))
+                if with_lr_middle else None)
+            return self.unet_feature(x, g, timesteps, lr_apply=hr_apply,
+                                     label=label)
         raise ValueError(unet_type)

@@ -26,7 +26,7 @@ from typing import Dict
 import torch
 
 from ..octree import morton
-from ..octree.octree import Octree, set_where
+from ..octree.octree import Octree
 
 # corner offsets, x-major
 _CORNERS = ((0, 0, 0), (0, 0, 1), (0, 1, 0), (0, 1, 1),
@@ -198,11 +198,31 @@ def neural_mpu(pos: torch.Tensor, pt_batch: torch.Tensor,
             for d in range(depth_stop, depth_end + 1)}
 
 
+def _axis_taps(xf: torch.Tensor, s: int):
+    """The linear taps of positions ``xf`` (input-index units) along an
+    axis of ``s`` cells, on that axis compacted to the cells they read ->
+    (the cells, sorted; each position's two compact indices; their
+    weights, zero for an out-of-range tap)."""
+    i0 = torch.floor(xf).to(torch.int64)
+    f = xf - i0
+    c0, c1 = i0.clamp(0, s - 1), (i0 + 1).clamp(0, s - 1)
+    cells = torch.unique(torch.cat([c0, c1]))
+    lut = torch.zeros(s, dtype=torch.int64, device=xf.device)
+    lut[cells] = torch.arange(cells.shape[0], device=xf.device)
+    w0 = (1.0 - f) * ((i0 >= 0) & (i0 < s))
+    w1 = f * ((i0 + 1 >= 0) & (i0 + 1 < s))
+    return cells, lut[c0], lut[c1], w0, w1
+
+
 def mpu_dense_channels(reg: torch.Tensor, octree: Octree, dd: int,
-                       leaf_only: bool) -> torch.Tensor:
-    """Scatter per-node MPU channels into a dense [B, S, S, S, 6] grid:
-    [m·nx, m·ny, m·nz, m·(n·c), m·b, m] with m = valid(·leaf)·dd²/50."""
+                       leaf_only: bool, cells: torch.Tensor) -> torch.Tensor:
+    """Scatter per-node MPU channels into a dense [B, T, T, T, 6] grid over
+    the depth-``dd`` cells ``cells`` [T] (sorted) of each axis, the cells a
+    grid evaluation reads: [m·nx, m·ny, m·nz, m·(n·c), m·b, m] with
+    m = valid(·leaf)·dd²/50.  A node off those cells reaches no grid
+    point and is left out."""
     s = 2**dd
+    t = cells.shape[0]
     bsz = octree.batch_size
     x, y, z, b = octree.xyzb(dd)
     m = octree.node_mask(dd)
@@ -214,26 +234,27 @@ def mpu_dense_channels(reg: torch.Tensor, octree: Octree, dd: int,
     ndotc = torch.sum(n * coords, dim=-1, keepdim=True)
     ch = torch.cat([n, ndotc, bias, torch.ones_like(bias)], dim=-1)
     ch = ch * (m.to(torch.float32) * (dd * dd / 50.0))[:, None]
-    flat = ((b * s + x) * s + y) * s + z
-    grid = torch.zeros((bsz * s**3, 6), dtype=torch.float32, device=reg.device)
-    return set_where(grid, flat, ch, m).view(bsz, s, s, s, 6)
+    lut = torch.full((s,), -1, dtype=torch.int64, device=reg.device)
+    lut[cells] = torch.arange(t, device=reg.device)
+    cx, cy, cz = (lut[c.clamp(0, s - 1)] for c in (x, y, z))
+    keep = m & (cx >= 0) & (cy >= 0) & (cz >= 0)
+    flat = ((b * t + cx) * t + cy) * t + cz
+    # one scratch row past the end takes the dropped nodes
+    n_cells = bsz * t**3
+    grid = torch.zeros((n_cells + 1, 6), dtype=torch.float32,
+                       device=reg.device)
+    grid.index_put_((torch.where(keep, flat, n_cells),), ch)
+    return grid[:n_cells].view(bsz, t, t, t, 6)
 
 
-def _lerp_axis(arr: torch.Tensor, xf: torch.Tensor, axis: int) -> torch.Tensor:
-    """1-D linear interpolation of ``arr`` along ``axis`` at positions
-    ``xf`` (input-index units); out-of-range taps contribute zero."""
-    s = arr.shape[axis]
-    i0 = torch.floor(xf).to(torch.int64)
-    f = xf - i0
-    v0 = (i0 >= 0) & (i0 < s)
-    v1 = (i0 + 1 >= 0) & (i0 + 1 < s)
-    t0 = torch.index_select(arr, axis, i0.clamp(0, s - 1))
-    t1 = torch.index_select(arr, axis, (i0 + 1).clamp(0, s - 1))
+def _lerp_axis(arr: torch.Tensor, j0: torch.Tensor, j1: torch.Tensor,
+               w0: torch.Tensor, w1: torch.Tensor, axis: int) -> torch.Tensor:
+    """1-D linear interpolation of ``arr`` along ``axis`` from the taps
+    ``j0`` / ``j1`` with weights ``w0`` / ``w1`` (:func:`_axis_taps`)."""
     shape = [1] * arr.dim()
-    shape[axis] = xf.shape[0]
-    w0 = ((1.0 - f) * v0).reshape(shape)
-    w1 = (f * v1).reshape(shape)
-    return t0 * w0 + t1 * w1
+    shape[axis] = j0.shape[0]
+    return (torch.index_select(arr, axis, j0) * w0.reshape(shape)
+            + torch.index_select(arr, axis, j1) * w1.reshape(shape))
 
 
 def mpu_grid_eval(
@@ -247,7 +268,9 @@ def mpu_grid_eval(
 ) -> torch.Tensor:
     """SDF of the MPU on a regular ``size``³ grid over [bbmin, bbmax]³
     (grid point i at bbmin + i·(bbmax-bbmin)/size).  Returns
-    [B, size, size, size] float32."""
+    [B, size, size, size] float32.  Each depth's channels are made dense
+    over the cells the grid's taps read only (at most 2 ``size`` a side:
+    at depth 10 and 256³, 512³ cells where the full grid has 1024³)."""
     bsz = octree.batch_size
     dev = octree.device
     step = (bbmax - bbmin) / size
@@ -256,12 +279,13 @@ def mpu_grid_eval(
     den = torch.zeros_like(num)
     for dd in range(full_depth, depth_end + 1):
         s = 2**dd
-        dense = mpu_dense_channels(reg_levels[dd], octree, dd,
-                                   leaf_only=dd < depth_end)
         xf = (idx * step + bbmin + 1.0) * (s / 2.0) - 0.5
-        t = _lerp_axis(dense, xf, axis=1)
-        t = _lerp_axis(t, xf, axis=2)
-        t = _lerp_axis(t, xf, axis=3)           # [B, R, R, R, 6]
+        cells, *taps = _axis_taps(xf, s)
+        dense = mpu_dense_channels(reg_levels[dd], octree, dd,
+                                   leaf_only=dd < depth_end, cells=cells)
+        t = _lerp_axis(dense, *taps, axis=1)
+        t = _lerp_axis(t, *taps, axis=2)
+        t = _lerp_axis(t, *taps, axis=3)        # [B, R, R, R, 6]
         xg = xf[:, None, None]
         yg = xf[None, :, None]
         zg = xf[None, None, :]

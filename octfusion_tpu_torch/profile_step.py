@@ -18,7 +18,20 @@ points, by ``--stage``:
 * ``vae``: the VAE step (``VAESolver.make_train_step``, batch 2 with
   ``data.point_sample_num`` SDF samples per shape, fixed eps) as
   ``vae_full``, its loss alone without the backward (``vae_fwd``) and the
-  batch's octree and dual graph alone (``vae_graph``).
+  batch's octree and dual graph alone (``vae_graph``);
+* ``hr_3t`` / ``feature``: the 3-stage model's hr (split_large) or
+  feature step (``Union3TSolver.make_train_step``, batch 2), on the
+  obja-3t-d10 configuration: ``configs/octfusion_obja_uncond.yaml`` over
+  the depth-10 VAE of ``configs/vae_obja_depth1084.yaml``
+  (``config.with_vae``), with fixed times and noise (and the feature
+  stage's encoder eps), the lumpy spheres at ``SHAPE_SCALE_3T`` of their
+  size so they fit the Objaverse caps.
+
+``--stage hr_3t`` or ``feature`` without ``--train`` profiles that
+stage's denoise step at batch 1 instead, on the graphs of a two-step
+3-stage cascade from the split grid of a seeded lumpy sphere (depth 6
+for ``hr_3t``, ``depth_stop`` 8 for ``feature``), and the same step on
+the packed graph (``_kpack``, K5).
 
 Each profiled call is warmed up, timed ``--steps`` times on the host clock
 (device synchronised at the end) and run ``--steps`` times under
@@ -30,7 +43,7 @@ eight kernels that take the most device time, with their launches per
 step.  The last line is the same as one JSON object.
 
 Usage: ``python -m octfusion_tpu_torch.profile_step [--steps N]
-[--train [--stage hr|lr|vae]]``.
+[--train] [--stage hr|lr|vae|hr_3t|feature]``.
 """
 
 import argparse
@@ -43,10 +56,12 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from .config import Config, load_config
-from .models.common import batch_to_graph
+from .config import Config, load_config, with_vae
+from .models.common import batch_to_graph, batch_to_octree
+from .models.union_3t_solver import Union3TSolver
 from .models.union_solver import UnionSolver
 from .models.vae_solver import VAESolver
+from .octree import split_codec
 from .octree.dual_graph import with_packed_levels
 from .utils.device import use_fp32_math
 from .utils.shapes import lumpy_sphere_batch, lumpy_spheres
@@ -54,9 +69,23 @@ from .utils.shapes import lumpy_sphere_batch, lumpy_spheres
 TOP = 8     # kernels listed per stage
 SEED = 0
 VAE_BATCH = 2
-TRAIN_CONFIG = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-    "configs", "octfusion_snet_uncond.yaml")
+_CONFIGS = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "configs")
+TRAIN_CONFIG = os.path.join(_CONFIGS, "octfusion_snet_uncond.yaml")
+# the 3-stage model: diffusion, data, solver, train | model, capacity
+CONFIG_3T = (os.path.join(_CONFIGS, "octfusion_obja_uncond.yaml"),
+             os.path.join(_CONFIGS, "vae_obja_depth1084.yaml"))
+
+
+# the lumpy spheres, sized for the default caps, overflow the Objaverse
+# caps at depths 6-8 (4096 / 16384 / 65536 a sample); at 0.8 of their size
+# they fit every level
+SHAPE_SCALE_3T = 0.8
+
+
+def config_3t() -> Config:
+    """The obja-3t-d10 configuration (see the module docstring)."""
+    return with_vae(*(load_config(p) for p in CONFIG_3T))
 
 
 def _steps_wall_ms(fn, steps):
@@ -123,8 +152,38 @@ def _denoise_steps(dev, steps):
         }
 
 
+def _denoise_steps_3t(dev, steps, stage):
+    cfg = config_3t()
+    torch.manual_seed(SEED)
+    solver = Union3TSolver(cfg, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    pts, nrm = lumpy_spheres(1, cfg.data.points_per_shape, SEED, device=dev)
+    split = split_codec.octree2split_small(
+        batch_to_octree(pts * SHAPE_SCALE_3T, nrm, solver.spec1))
+    with torch.no_grad():
+        out = solver.sample(steps=2, split_small=split, generator=gen,
+                            compute_sdf=False)
+    if stage == "hr_3t":
+        g, depth, c, kind = out["graph_small"], solver.hr_depth, 8, "hr"
+    else:
+        g, depth, c, kind = (out["graph"], solver.code_depth,
+                             cfg.model.embed_dim, "feature")
+    lvl = g.level(depth)
+    t = solver.log_snr(torch.tensor([0.5], device=dev))
+    x = torch.randn(lvl.g_cap, c, device=dev, generator=gen)
+    x = torch.where(lvl.node_mask[:, None], x, torch.zeros_like(x))
+    g_packed = with_packed_levels(g)
+    with torch.no_grad():
+        return {
+            stage: profile_stage(lambda: solver.df(kind, x, t, g=g), steps),
+            f"{stage}_kpack": profile_stage(
+                lambda: solver.df(kind, x, t, g=g_packed), steps),
+        }
+
+
 def _train_step(dev, steps, stage):
-    cfg = load_config(TRAIN_CONFIG)
+    cfg = (config_3t() if stage in ("hr_3t", "feature")
+           else load_config(TRAIN_CONFIG))
     torch.manual_seed(SEED)
     gen = torch.Generator(device=dev).manual_seed(SEED)
     if stage == "vae":
@@ -146,15 +205,21 @@ def _train_step(dev, steps, stage):
                 batch["points"], batch["normals"], solver.spec1,
                 solver.edge_factor), steps),
         }
-    solver = UnionSolver(cfg, stage_flag=stage, device=dev)
     b = cfg.data.batch_size
     pts, nrm = lumpy_spheres(b, cfg.data.points_per_shape, SEED, device=dev)
     batch = {"points": pts, "normals": nrm}
     s = 2**cfg.model.full_depth
-    shape = (solver.code_shape(b) if stage == "hr" else (b, s, s, s, 8))
+    if stage in ("hr_3t", "feature"):
+        batch["points"] = pts * SHAPE_SCALE_3T
+        solver = Union3TSolver(cfg, stage_flag=stage.replace("_3t", ""),
+                               device=dev)
+        shape = solver.train_shape(b)
+    else:
+        solver = UnionSolver(cfg, stage_flag=stage, device=dev)
+        shape = (solver.code_shape(b) if stage == "hr" else (b, s, s, s, 8))
     draws = {"times": torch.rand(b, device=dev, generator=gen),
              "noise": torch.randn(shape, device=dev, generator=gen)}
-    if stage == "hr":
+    if stage in ("hr", "feature"):
         draws["eps"] = torch.randn(shape, device=dev, generator=gen)
     step = solver.make_train_step()
     return {f"train_{stage}": profile_stage(lambda: step(batch, **draws),
@@ -168,15 +233,21 @@ def main(argv=None):
     ap.add_argument("--train", action="store_true",
                     help="profile a train step instead of the denoise "
                          "steps")
-    ap.add_argument("--stage", choices=("hr", "lr", "vae"), default="hr",
-                    help="the train step --train profiles")
+    ap.add_argument("--stage", choices=("hr", "lr", "vae", "hr_3t",
+                                        "feature"), default="hr",
+                    help="the train step --train profiles; hr_3t and "
+                         "feature also the 3-stage denoise steps")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_step: no CUDA device")
     use_fp32_math()
     dev = torch.device("cuda")
-    result = (_train_step(dev, args.steps, args.stage) if args.train
-              else _denoise_steps(dev, args.steps))
+    if args.train:
+        result = _train_step(dev, args.steps, args.stage)
+    elif args.stage in ("hr_3t", "feature"):
+        result = _denoise_steps_3t(dev, args.steps, args.stage)
+    else:
+        result = _denoise_steps(dev, args.steps)
     for stage, r in result.items():
         print(f"{stage}: wall_ms/step={r['wall_ms']:.3f} "
               f"device_ms/step={r['device_ms']:.3f} "

@@ -13,12 +13,31 @@ JAX package's ``train.py`` on one device.
         --mode generate --config ... --name hr --count 4 \\
         --vq_ckpt logs/vae/ckpt/steps-latest
 
+The 3-stage model (``--model union_3t``; a config whose
+``diffusion.unet_type`` is lr, hr, feature, e.g.
+``configs/octfusion_obja_uncond.yaml``'s diffusion over a VAE whose
+``depth_stop`` is ``input_depth[2]``) trains stage by stage:
+
+    python -m octfusion_tpu_torch.train --model union_3t --stage lr \\
+        --config cfg3t.yaml --name lr3
+    python -m octfusion_tpu_torch.train --model union_3t --stage hr \\
+        --config cfg3t.yaml --name hr3 \\
+        --pretrain_ckpt logs/lr3/ckpt/steps-latest
+    python -m octfusion_tpu_torch.train --model union_3t --stage feature \\
+        --config cfg3t.yaml --name feat3 \\
+        --vq_ckpt logs/vae10/ckpt/steps-latest \\
+        --pretrain_ckpt logs/hr3/ckpt/steps-latest
+    python -m octfusion_tpu_torch.train --model union_3t --stage feature \\
+        --mode generate --config cfg3t.yaml --name feat3 --count 4 \\
+        --vq_ckpt logs/vae10/ckpt/steps-latest
+
 Train mode reads ``data`` of the config (``name: synthetic`` or the
 reference's ShapeNet layout), skips samples whose octree or dual graph
 would overflow the static capacities, and trains ``--max_steps`` steps
 (default: the loader's batches per epoch times ``train.epochs``).  Step
 ``it`` prints its losses when ``it % train.print_freq == 0``, writes a
-reconstruction (vae) or sample (hr) mesh at ``min(resolution, 128)``
+reconstruction (vae) or sample (union hr, union_3t feature) mesh at
+``min(resolution, 128)``
 under ``<run>/train_temp`` every ``train.display_freq`` steps, and saves
 ``<run>/ckpt/steps-<N>.pth`` every ``train.save_latest_freq`` steps and at
 the end (the newest ``train.ckpt_num`` are kept).  A run resumes from
@@ -28,19 +47,27 @@ A union checkpoint holds the reference layout (``df_unet_<kind>``,
 ``ema_df_unet_<kind>``) and ``train_state``; a VAE checkpoint holds
 ``autoencoder`` and ``train_state``, so it serves as ``--vq_ckpt``.
 ``--vq_ckpt`` also reads the reference's ``.pth``; it cannot read the JAX
-package's orbax checkpoint directories.  ``--pretrain_ckpt`` grafts an lr
-run's ``unet_lr`` (weights and EMA) into an hr run.  The run ends with one
+package's orbax checkpoint directories; the hr (union) and feature
+(union_3t) stages without it warn and train on random VAE weights.
+``--pretrain_ckpt`` grafts the earlier stages' U-Nets (weights and EMA)
+of a previous run: ``unet_lr`` into an hr run, ``unet_lr`` and
+``unet_hr`` into a feature run; the grafted U-Nets stay frozen.  The 3-stage
+model's checkpoints add ``df_unet_feature`` / ``ema_df_unet_feature``.
+The run ends with one
 line: ms/step (median after the first), the seconds per step spent
 waiting on the loader (``data_s``, mean after the first; the first
 step's own wait is ``first_data_s``), the first and last loss, the
 graph-conv kernels' launches, the GraphConv forward and backward calls,
 and the peak memory.
 
-Generate mode: ``--model union --stage hr`` runs ``generate.main`` on the
-run's latest (or ``--ckpt``'s) EMA weights; ``--stage lr`` writes each
-shape's sampled split grid as ``results_<category>/<i>.npz``
-(``split_small``, the layout ``data.load_split_small`` reads); ``--model
-vae`` reconstructs dataset item i into ``results_<category>/<i>.obj``.
+Generate mode: ``--model union --stage hr`` and ``--model union_3t
+--stage feature`` run ``generate.main`` on the run's latest (or
+``--ckpt``'s) EMA weights; ``--stage lr`` writes each shape's sampled
+split grid as ``results_<category>/<i>.npz`` (``split_small``, the layout
+``data.load_split_small`` reads), and ``--model union_3t --stage hr``
+adds its ``split_large`` ([G_cap, 8] on the depth-``input_depth[1]``
+graph's layout); ``--model vae`` reconstructs dataset item i into
+``results_<category>/<i>.obj``.
 
 Runs on the card unless ``--device cpu``; without a card the default
 raises.  Computes in fp32 with TF32 off, as the reference.
@@ -65,6 +92,7 @@ from .data import loader as loader_lib
 from .data.dataset import CapacityFilteredDataset, collate, get_dataset
 from .data.shapenet import category_5_to_label
 from .models.common import batch_to_device
+from .models.union_3t_solver import Union3TSolver
 from .models.union_solver import UnionSolver
 from .models.vae_solver import VAESolver, VAETrainStep
 from .nn.modules import GraphConv
@@ -77,8 +105,8 @@ from .utils.overflow import OverflowMonitor
 from .utils.visualizer import Visualizer
 from .utils.watchdog import StallWatchdog
 
-UNPORTED = ("is not ported yet: the 3-stage solver and its feature stage "
-            "are ROADMAP Queue 1 item 6")
+# the U-Nets ``--pretrain_ckpt`` grafts into each stage
+GRAFTS = {"hr": ("lr",), "feature": ("lr", "hr")}
 
 
 def parse_args(argv=None):
@@ -98,7 +126,9 @@ def parse_args(argv=None):
                         "steps-<N>.pth or the reference's .pth (orbax "
                         "directories of the JAX package are not read)")
     p.add_argument("--pretrain_ckpt", default=None,
-                   help="an lr run's checkpoint, grafted into an hr run")
+                   help="an earlier stage's checkpoint: its unet_lr is "
+                        "grafted into an hr run, its unet_lr and unet_hr "
+                        "into a feature run")
     p.add_argument("--category", default="airplane")
     p.add_argument("--count", type=int, default=4,
                    help="number of shapes to generate")
@@ -288,9 +318,20 @@ def _one(dataset, i, dev):
     return batch_to_device(collate([dataset[i % len(dataset)]]), dev)
 
 
+def _solver_class(args):
+    return Union3TSolver if args.model == "union_3t" else UnionSolver
+
+
+def _makes_mesh(args) -> bool:
+    """Whether the model and stage decode a shape (the VAE, the 2-stage
+    hr stage, the 3-stage feature stage)."""
+    return (args.model == "vae" or args.stage == "feature"
+            or (args.model == "union" and args.stage == "hr"))
+
+
 def generate_mode(args, cfg, run_dir, dev):
     """-> the paths written."""
-    if args.model == "union" and args.stage == "hr":
+    if args.model != "vae" and _makes_mesh(args):
         argv = ["--config", os.path.join(run_dir, "config.yaml"),
                 "--category", args.category, "--count", str(args.count),
                 "--seed", str(args.seed), "--device", str(dev)]
@@ -330,7 +371,7 @@ def generate_mode(args, cfg, run_dir, dev):
             else:
                 print(f"[!] empty mesh, skipped {out}")
     else:
-        solver = UnionSolver(cfg, stage_flag="lr", device=dev)
+        solver = _solver_class(args)(cfg, stage_flag=args.stage, device=dev)
         if tree is not None:
             params_lib.load_union_checkpoint(solver.df, tree)
         label = _label(cfg, args.category, dev)
@@ -339,7 +380,10 @@ def generate_mode(args, cfg, run_dir, dev):
                 generate_lib.shape_seed(args.seed, i))
             out = solver.sample(batch_size=1, label=label, generator=gen)
             path = os.path.join(rdir, f"{i}.npz")
-            np.savez(path, split_small=out["split_small"][0].cpu().numpy())
+            arrays = {"split_small": out["split_small"][0]}
+            if "split_large" in out:
+                arrays["split_large"] = out["split_large"]
+            np.savez(path, **{k: v.cpu().numpy() for k, v in arrays.items()})
             stages.append(out["seconds"])
             written.append(path)
             print(f"[*] wrote {path}", flush=True)
@@ -367,19 +411,19 @@ def train_mode(args, cfg, run_dir, dev) -> Dict:
         step = solver.make_train_step(total_steps)
         what = "vae"
     else:
-        solver = UnionSolver(cfg, stage_flag=args.stage, device=dev)
+        solver = _solver_class(args)(cfg, stage_flag=args.stage, device=dev)
         step = solver.make_train_step()
-        what = f"union {args.stage}"
+        what = f"{args.model} {args.stage}"
         if args.vq_ckpt:
             params_lib.load_vae_checkpoint(solver.vae, args.vq_ckpt)
             print(f"[*] loaded VAE weights from {args.vq_ckpt}")
-        elif args.stage != "lr":
+        elif _makes_mesh(args):
+            # the stages that encode (training) or decode (display) shapes
             print("[warn] no --vq_ckpt given; using random VAE weights")
         if args.pretrain_ckpt:
-            grafts = {"hr": ("lr",)}.get(args.stage, ())
             for kind in params_lib.graft_union_checkpoint(
                     solver.df, step.ema, ckpt_lib.restore(args.pretrain_ckpt),
-                    grafts):
+                    GRAFTS.get(args.stage, ())):
                 print(f"[*] grafted unet_{kind} from {args.pretrain_ckpt}")
 
     resume = args.ckpt or ckpt_lib.latest_path(ckpt_dir)
@@ -387,8 +431,8 @@ def train_mode(args, cfg, run_dir, dev) -> Dict:
         restore_training(step, ckpt_lib.restore(resume))
         print(f"[*] resumed from {resume} at step {step.step}")
         if args.pretrain_ckpt and args.model != "vae" and args.stage != "lr":
-            # the resumed state holds this run's own (frozen) unet_lr: an
-            # extended lr run does not reach a resumed hr run
+            # the resumed state holds this run's own (frozen) earlier
+            # U-Nets: an extended earlier run does not reach a resumed one
             print("[!] NOTE: --pretrain_ckpt graft is superseded by the "
                   "resumed checkpoint's own (frozen) subtrees; start a "
                   "fresh run dir to re-graft an updated pretrain stage")
@@ -437,9 +481,9 @@ def train_mode(args, cfg, run_dir, dev) -> Dict:
             generator=torch.Generator(device=dev).manual_seed(args.seed),
             device=dev, print_freq=t.print_freq, vis=vis,
             save_freq=t.save_latest_freq, save=save,
-            # the lr stage alone makes no mesh to look at
-            display_freq=0 if args.stage == "lr" and args.model != "vae"
-            else t.display_freq, display=display,
+            # the lr stage (and the 3-stage hr stage) makes no mesh
+            display_freq=t.display_freq if _makes_mesh(args) else 0,
+            display=display,
             profile=args.profile, profile_dir=os.path.join(run_dir, "profile"))
     finally:
         batches.close()
@@ -451,10 +495,9 @@ def train_mode(args, cfg, run_dir, dev) -> Dict:
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.model == "union_3t":
-        raise NotImplementedError(f"--model union_3t {UNPORTED}")
-    if args.stage == "feature":
-        raise NotImplementedError(f"--stage feature {UNPORTED}")
+    if args.model == "union" and args.stage == "feature":
+        raise SystemExit("--stage feature is the 3-stage model's: use "
+                         "--model union_3t")
     dev = resolve_device(args.device)
     use_fp32_math()
     cfg = configure(args)

@@ -242,27 +242,33 @@ def unet_hr_state_dict(params: Dict, channel_mult=(1, 2, 4),
 
 def union_state_dict(params: Dict, union_cfg) -> Dict[str, torch.Tensor]:
     """flax ``UNetUnion`` params -> the port's ``UNetUnion`` state dict
-    (stages present in ``params``)."""
+    (stages present in ``params``: ``unet_lr``, ``unet_hr`` and the
+    3-stage model's ``unet_feature``, each with its own stage's mult and
+    res blocks)."""
     tree = params.get("params", params)
     sd = {}
     for i, kind in enumerate(union_cfg.unet_type):
-        if kind not in ("lr", "hr") or f"unet_{kind}" not in tree:
+        if f"unet_{kind}" not in tree:
             continue
         if kind == "lr":
             part = unet_lr_state_dict(
                 tree["unet_lr"], union_cfg.channel_mult[i],
                 union_cfg.attention_resolutions)
-        else:
+        else:   # hr, and the 3-stage model's feature U-Net: both UNetHR
             part = unet_hr_state_dict(
-                tree["unet_hr"], union_cfg.channel_mult[i],
+                tree[f"unet_{kind}"], union_cfg.channel_mult[i],
                 union_cfg.num_res_blocks[i])
         sd.update({f"unet_{kind}.{k}": v for k, v in part.items()})
     return sd
 
 
 # ----------------------------------------------------------------------
-# the reference's checkpoint layout (octfusion_model_union.py:501-523)
+# the reference's checkpoint layout (octfusion_model_union.py:501-523;
+# the 3-stage model's octfusion_model_union_3t.py:216-241 adds
+# df_unet_feature / ema_df_unet_feature)
 # ----------------------------------------------------------------------
+UNET_KINDS = ("lr", "hr", "feature")
+
 def union_checkpoint(df: torch.nn.Module,
                      ema: Optional[Dict[str, torch.Tensor]] = None) -> Dict:
     """A ``UNetUnion``'s weights in the reference's checkpoint layout, for
@@ -272,7 +278,7 @@ def union_checkpoint(df: torch.nn.Module,
     buffers stay live, and a parameter missing from ``ema`` raises).  Without ``ema`` both entries hold the live
     weights.  Tensors on the host, under the reference keys."""
     tree = {}
-    for kind in ("lr", "hr"):
+    for kind in UNET_KINDS:
         net = getattr(df, f"unet_{kind}", None)
         if net is None:
             continue
@@ -292,7 +298,7 @@ def union_ema(tree: Dict) -> Dict[str, torch.Tensor]:
     """The ``ema_df_unet_*`` entries of a reference-layout checkpoint as
     one dict keyed by the parameter names of ``UNetUnion``
     (``unet_<kind>.<key>``), as ``TrainStep.ema`` holds them."""
-    return {f"unet_{kind}.{k}": v for kind in ("lr", "hr")
+    return {f"unet_{kind}.{k}": v for kind in UNET_KINDS
             for k, v in tree.get(f"ema_df_unet_{kind}", {}).items()}
 
 
@@ -300,7 +306,8 @@ def graft_union_checkpoint(df: torch.nn.Module,
                            ema: Dict[str, torch.Tensor], tree: Dict,
                            kinds=("lr",)) -> list:
     """Stage bootstrap (``train.py:219-234`` of the JAX package; the
-    reference's ``octfusion_model_union.py:127-128``): for each U-Net kind
+    reference's ``octfusion_model_union.py:127-128``; an hr run grafts
+    ``("lr",)``, a 3-stage feature run ``("lr", "hr")``): for each U-Net kind
     of ``kinds`` that both ``df`` and the checkpoint ``tree`` hold, load
     ``df_unet_<kind>`` into ``df.unet_<kind>`` and ``ema_df_unet_<kind>``
     into its entries of ``ema``.  Strict.  -> the kinds grafted."""
@@ -327,7 +334,7 @@ def load_union_checkpoint(df: torch.nn.Module, tree: Dict,
     unexpected key raises."""
     prefix = "ema_df_" if ema else "df_"
     sd = {}
-    for kind in ("lr", "hr"):
+    for kind in UNET_KINDS:
         entry = tree.get(f"{prefix}unet_{kind}")
         has = getattr(df, f"unet_{kind}", None) is not None
         if entry is None and has:

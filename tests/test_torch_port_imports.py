@@ -50,3 +50,12 @@ def test_guard_sees_the_forbidden_forms(tmp_path):
     got = [m for m in imported_modules(str(src)) if forbidden(m)]
     assert got == ["jax.numpy", "octfusion_tpu.data", "orbax.checkpoint"]
     assert len(FILES) > 40
+
+
+@pytest.mark.parametrize("module", [
+    "octfusion_tpu_torch/models/union_3t_solver.py",
+    "octfusion_tpu_torch/tools/lr_occupancy.py",
+    "octfusion_tpu_torch/tools/class_purity.py"])
+def test_scan_covers_the_three_stage_modules(module):
+    """The 3-stage solver and the tools that came with it are scanned."""
+    assert os.path.join(REPO, module) in FILES

@@ -15,8 +15,9 @@ what it is made of, on the CPU at ``configs/synthetic_tiny.yaml`` size
 * the CLI end to end in-process: VAE, lr (with ``--profile``), then hr
   train with ``--vq_ckpt`` and ``--pretrain_ckpt`` (display evals on), a
   resumed longer VAE run, the generate modes of union (hr and lr) and
-  vae, a conditional model's labels, and the unported and card-only
-  choices raising;
+  vae, a conditional model's labels, the 3-stage model (``--model
+  union_3t``: lr, hr, feature with their grafts, generate), and the
+  2-stage model's feature stage and the card-only default raising;
 * ``OverflowMonitor`` and ``StallWatchdog`` (as ``tests/
   test_overflow_monitor.py`` and ``tests/test_watchdog.py`` hold the JAX
   package's)."""
@@ -34,6 +35,7 @@ from octfusion_tpu_torch import config as config_lib
 from octfusion_tpu_torch import train as ttrain
 from octfusion_tpu_torch.data import dataset as tds
 from octfusion_tpu_torch.data import loader as tloader
+from octfusion_tpu_torch.models.union_3t_solver import Union3TSolver
 from octfusion_tpu_torch.models.union_solver import UnionSolver
 from octfusion_tpu_torch.models.vae_solver import VAESolver
 from octfusion_tpu_torch.utils import ckpt as ckpt_lib
@@ -316,12 +318,114 @@ def test_cli_trains_a_conditional_model(tmp_path):
     assert len(written) == 1
 
 
-@pytest.mark.parametrize("argv", [("--model", "union_3t"),
-                                  ("--model", "union", "--stage", "feature")])
-def test_cli_unported_choices_raise(argv, tmp_path):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        ttrain.main([*argv, "--config", TINY_YAML, "--logs_dir",
-                     str(tmp_path), "--device", "cpu"])
+def tiny_3t_cfg():
+    """The tiny config as a 3-stage model (``tests/test_union_3t.py``'s
+    sizes: depth 5, depth_stop 4 = ``input_depth[2]``)."""
+    cfg = tiny_cfg()
+    return dataclasses.replace(
+        cfg,
+        model=dataclasses.replace(cfg.model, depth=5, depth_stop=4,
+                                  depth_out=5, channels=(4, 8, 8, 8, 8, 8)),
+        capacity=dataclasses.replace(cfg.capacity, finest_cap=4096),
+        diffusion=dataclasses.replace(
+            cfg.diffusion, ddim_steps=4, unet_type=("lr", "hr", "feature"),
+            df_type=("x0", "x0", "x0"), input_depth=(2, 3, 4),
+            input_channels=(8, 8, 2), out_channels=(8, 8, 2),
+            model_channels=(8, 16, 16),
+            num_res_blocks=((1, 1), (1, 0), (1, 0)),
+            channel_mult=((1, 2), (1, 1), (1, 1))),
+        train=dataclasses.replace(cfg.train, print_freq=1,
+                                  save_latest_freq=1, display_freq=2))
+
+
+def test_cli_trains_union_3t_and_generates(tmp_path, capsys):
+    """``--model union_3t``: lr, then hr grafted from it, then feature
+    grafted from the hr run with ``--vq_ckpt``, then generate: the feature
+    run's checkpoint holds ``df_unet_feature`` and an EMA that differs from
+    it after a step, and the frozen U-Nets of the runs before it."""
+    root = str(tmp_path)
+    config_lib.dump_config(tiny_3t_cfg(), os.path.join(root, "cfg.yaml"))
+    ck = lambda name: os.path.join(root, name, "ckpt", "steps-latest")
+    _cli(root, "--model", "vae", "--name", "vae", "--max_steps", "1")
+    _cli(root, "--model", "union_3t", "--stage", "lr", "--name", "lr",
+         "--max_steps", "1")
+    _cli(root, "--model", "union_3t", "--stage", "hr", "--name", "hr",
+         "--max_steps", "1", "--pretrain_ckpt", ck("lr"))
+    stats = _cli(root, "--model", "union_3t", "--stage", "feature", "--name",
+                 "feat", "--max_steps", "2", "--vq_ckpt", ck("vae"),
+                 "--pretrain_ckpt", ck("hr"))
+    assert np.isfinite(stats["loss"]).all()
+    out = capsys.readouterr().out
+    for line in ("[*] grafted unet_lr from", "[*] grafted unet_hr from",
+                 "[*] loaded VAE weights from",
+                 "[*] trained union_3t feature on cpu: steps=2 "):
+        assert line in out, line
+    assert "display eval failed" not in out
+    trees = {n: ckpt_lib.restore(ck(n)) for n in ("lr", "hr", "feat")}
+    assert sorted(trees["hr"]) == ["df_unet_hr", "df_unet_lr",
+                                   "ema_df_unet_hr", "ema_df_unet_lr",
+                                   "train_state"]
+    feat = trees["feat"]
+    assert sorted(feat) == sorted(
+        [f"{p}df_unet_{k}" for p in ("", "ema_") for k in ("lr", "hr",
+                                                            "feature")]
+        + ["train_state"])
+    assert any(not torch.equal(v, feat["ema_df_unet_feature"][k])
+               for k, v in feat["df_unet_feature"].items())
+    for kind, src in (("lr", "lr"), ("hr", "hr")):
+        for k, v in trees[src][f"df_unet_{kind}"].items():
+            assert torch.equal(feat[f"df_unet_{kind}"][k], v), (kind, k)
+
+    written = _cli(root, "--model", "union_3t", "--stage", "feature",
+                   "--name", "feat", "--mode", "generate", "--count", "1",
+                   "--vq_ckpt", ck("vae"), "--sampler", "dpmpp",
+                   "--sample_steps", "2")
+    assert len(written) == 1 and _obj_faces(written[0]) > 0
+    assert "loaded EMA diffusion weights" in capsys.readouterr().out
+    written = _cli(root, "--model", "union_3t", "--stage", "hr", "--name",
+                   "hr", "--mode", "generate", "--count", "1",
+                   "--sample_steps", "2")
+    arrays = np.load(written[0])
+    assert arrays["split_small"].shape == (4, 4, 4, 8)
+    assert arrays["split_large"].shape[1] == 8
+    assert np.isfinite(arrays["split_large"]).all()
+
+
+def test_feature_graft_brings_unet_hr_and_its_ema(batches):
+    """A feature run grafts an hr run's ``unet_lr`` and ``unet_hr``,
+    weights and EMA (the JAX package's ``train.py:219-233``); its own
+    ``unet_feature`` keeps its weights."""
+    cfg = tiny_3t_cfg()
+    torch.manual_seed(3)
+    hr_step = Union3TSolver(cfg, "hr", device="cpu").make_train_step()
+    gen = torch.Generator().manual_seed(1)
+    ttrain.train_loop(hr_step, iter(batches), 1, generator=gen)
+    tree = ttrain.training_checkpoint(hr_step)
+    torch.manual_seed(4)
+    step = Union3TSolver(cfg, "feature", device="cpu").make_train_step()
+    own = {k: v.clone() for k, v in
+           step.solver.df.unet_feature.state_dict().items()}
+    assert params_lib.graft_union_checkpoint(
+        step.solver.df, step.ema, tree, ttrain.GRAFTS["feature"]) == [
+            "lr", "hr"]
+    for kind in ("lr", "hr"):
+        net = getattr(step.solver.df, f"unet_{kind}")
+        for k, v in net.state_dict().items():
+            assert torch.equal(v, tree[f"df_unet_{kind}"][k]), (kind, k)
+            assert torch.equal(step.ema[f"unet_{kind}.{k}"],
+                               tree[f"ema_df_unet_{kind}"][k]), (kind, k)
+    assert any(not torch.equal(tree["df_unet_hr"][k],
+                               tree["ema_df_unet_hr"][k])
+               for k in tree["df_unet_hr"])
+    for k, v in step.solver.df.unet_feature.state_dict().items():
+        assert torch.equal(v, own[k]), k
+
+
+def test_cli_refuses_a_feature_stage_of_the_two_stage_model(tmp_path):
+    with pytest.raises(SystemExit, match="union_3t"):
+        ttrain.main(["--model", "union", "--stage", "feature", "--config",
+                     TINY_YAML, "--logs_dir", str(tmp_path), "--device",
+                     "cpu"])
 
 
 def test_cli_defaults_to_the_card(tmp_path):
