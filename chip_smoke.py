@@ -199,13 +199,46 @@ input gradient and K5 packed forward; the Chamfer kernel K4):
    hr run with a seeded depth-10 VAE checkpoint as ``--vq_ckpt``, then
    generate (dpmpp-25, one shape at 64³): each exits 0, the feature
    checkpoint holds ``df_unet_feature`` with an EMA other than it and the
-   hr run's ``unet_lr`` / ``unet_hr``, the mesh has faces.
+   hr run's ``unet_lr`` / ``unet_hr``, the mesh has faces;
+21. the colour VAE at full width (``configs/vae_snet_color.yaml``'s
+   model, capacity and loss: ``channel_in`` 7, colour heads, 200 x colour
+   MSE per depth): batch 2 of seeded lumpy spheres, 65536 points and
+   50000 SDF samples each, per-point colours a smooth function of
+   position (``utils/shapes.position_colors``).  K1 / K2 / K3 vs plain at
+   every (level, C, C') of the step (conv1 reads C = 14: 4 ND + 3 RGB +
+   7 node types, not a multiple of 4, K2's ``<false>`` path); one step
+   card vs CPU at batch 1 under deterministic algorithms at phase 7's
+   tolerances; ``COLOR_TRAIN_STEPS`` (10) steps (finite, falling loss
+   and every ``color_loss_{d}``, launches = calls); ``reconstruct`` of
+   the 2 shapes (256³, finite colours); the train CLI for 2 steps on a
+   ShapeNet-format set with ``color.npz``;
+22. data parallelism on the one card: (a) two ranks spawned
+   (``parallel/launch.spawn``, gloo, both on cuda:0, under deterministic
+   algorithms) run the hr DP step at the snet width (global batch 4, 2
+   per rank, perturbed weights, fixed per-rank draws); rank 0 replays it
+   in one process (each shard's loss and backward, the gradients
+   averaged, one optimizer and EMA step) and holds parameters, EMA and
+   loss to phase 7's tolerances; both ranks' parameters and EMA are
+   identical (bit digests); (b) the same for the VAE step on the query
+   axis (data 1 x model 2); each prints the DP step's ms (both ranks on
+   one card) beside one shard's single-process forward + backward, the
+   gradient all-reduce's bytes and ms and rank 0's idle share; (c)
+   ``torch.distributed.run --nproc_per_node 1 -m
+   octfusion_tpu_torch.train`` (NCCL, world 1): 3 hr steps on a
+   ShapeNet-format set, the checkpoint restored into a plain run; (d)
+   ``--mode generate`` of 4 shapes (dpmpp-25 at 64³, K5) on 2 ranks
+   sharing the card (gloo, chosen because the host has fewer cards than
+   ranks) against the same CLI in this process: the same files, bit for bit
+   (or, if not, the same faces with vertices within K1's atol, said so);
+   (e) ``pairwise_cd_emd`` with ``shard_devices=["cuda:0", "cuda:0"]``
+   equal to the unsharded matrices bit for bit.  Every spawned process
+   has a timeout and a failing rank fails the phase.
 
 Prints the kernel summary as a JSON line (each kernel's ``launches`` is
-its count over the counted runs of phases 5, 8, 12, 17, 18, 19 and 20,
-K4's over phases 10 and 19; ``ms``, ``plain_ms``, ``bound_ms`` and
-``library_ms`` sum the shapes of phases 3, 6, 15 and 20, 9, or 11 and
-20, K1's and K3's ``gemm_ms`` the GEMM-alone yardstick over the same
+its count over the counted runs of phases 5, 8, 12, 17, 18, 19, 20, 21
+and 22, K4's over phases 10, 19 and 22; ``ms``, ``plain_ms``,
+``bound_ms`` and ``library_ms`` sum the shapes of phases 3, 6, 15, 20
+and 21, 9, or 11 and 20, K1's and K3's ``gemm_ms`` the GEMM-alone yardstick over the same
 shapes, and K5's ``k1_ms`` is K1 on phases 11's and 20's shapes;
 ``bound_by`` is the larger of the summed operation and byte times; every
 bound is ``roofline.bound_times``: the operations at
@@ -287,6 +320,17 @@ CLI_DATA_POINTS = 100000   # surface points and SDF samples per shape file
 CLI_TRAIN_RESOLUTION = 64  # SDF grid of the display evals and generate
 CLI_TIMEOUT = 600          # seconds per CLI run
 CLI_RECON_SHAPES = 2       # held-out shapes of tools/vae_recon_eval
+# phase 21
+COLOR_CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "configs", "vae_snet_color.yaml")
+COLOR_TRAIN_STEPS = 10  # the first 2 are warm-up
+COLOR_CLI_SHAPES = 4
+COLOR_CLI_STEPS = 2
+# phase 22
+DP_TIMEOUT = 900        # seconds for the two spawned ranks
+DP_TIMED_STEPS = 1      # DP steps timed after the checked one
+DP_CLI_STEPS = 3
+DP_EVAL_SETS = 12       # clouds per set of the sharded evaluation
 # phase 20
 TRAIN_STEPS_3T = 4      # per stage; the first 2 are warm-up
 CLI_3T_SHAPES = 4
@@ -677,14 +721,15 @@ def compare_steps(label, runs, prefix, batch_size: int = 1):
           flush=True)
 
 
-def run_steps(label, step, batch, n_steps, counted: bool, **kw):
-    """Phases 14 and 17: ``n_steps`` timed steps of ``step`` on one fixed
-    batch; prints the losses, the median ms/step after 2 warm-up steps
-    with its stage split, and the peak memory; raises on overflow or a
-    loss that is not finite or does not fall.  With ``counted`` the
-    graph-conv launch counts are set to 0 first and checked after
-    against the GraphConv forward and backward calls -> the run's
-    launches."""
+def run_steps(label, step, batch, n_steps, counted: bool, falling=(),
+              **kw):
+    """Phases 14, 17 and 21: ``n_steps`` timed steps of ``step`` on one
+    fixed batch; prints the losses (and the terms named in ``falling``),
+    the median ms/step after 2 warm-up steps with its stage split, and the
+    peak memory; raises on overflow or a loss (or ``falling`` term) that
+    is not finite or does not fall.  With ``counted`` the graph-conv
+    launch counts are set to 0 first and checked after against the
+    GraphConv forward and backward calls -> the run's launches."""
     from octfusion_tpu_torch.nn.modules import GraphConv
     from octfusion_tpu_torch.ops import graph_conv_cuda as k
 
@@ -694,11 +739,14 @@ def run_steps(label, step, batch, n_steps, counted: bool, **kw):
     GraphConv.calls = 0
     k.GraphConvFunction.backward_calls = 0
     losses, walls, stages = [], [], []
+    terms = {name: [] for name in falling}
     for _ in range(n_steps):
         t0 = time.perf_counter()
         out = step(batch, timed=True, **kw)
         walls.append(time.perf_counter() - t0)
         losses.append(out["loss"].item())
+        for name in falling:
+            terms[name].append(out[name].item())
         stages.append(out["seconds"])
         if "overflow" not in out or out["overflow"].item():
             raise AssertionError(f"{label}: the batch overflows (or no flag)")
@@ -720,6 +768,12 @@ def run_steps(label, step, batch, n_steps, counted: bool, **kw):
         raise AssertionError(f"{label}: non-finite loss: {losses}")
     if not losses[-1] < losses[0]:
         raise AssertionError(f"{label}: the loss did not fall: {losses}")
+    for name, vals in terms.items():
+        print(f"{label} {name} " + " ".join(f"{v:.6f}" for v in vals),
+              flush=True)
+        if not (all(math.isfinite(v) for v in vals) and vals[-1] < vals[0]):
+            raise AssertionError(f"{label}: {name} is not finite or did not "
+                                 f"fall: {vals}")
     if counted:
         print(f"{label} launches fwd={launches['graph_conv_fwd']} "
               f"col={launches['graph_conv_col']} "
@@ -916,8 +970,8 @@ def vae_setup(seed):
     return solver, cfg, batch, eps, g, shapes
 
 
-def check_vae_step(solver, cfg, batch, seed):
-    """Phase 16: one full-width VAE train step's loss terms and gradients,
+def check_vae_step(solver, cfg, batch, seed, label="vae_step"):
+    """Phases 16 and 21: one full-width VAE train step's loss terms and gradients,
     card vs CPU at batch 1, from the same perturbed weights and eps, both
     under deterministic algorithms.  The VAE's gradients reach ~1e3, where
     the atomic and parallel accumulations (``index_add_``, ``index_put_``
@@ -943,7 +997,7 @@ def check_vae_step(solver, cfg, batch, seed):
                 to_device(one, sol.device), eps=eps.to(sol.device)))
     finally:
         torch.use_deterministic_algorithms(False)
-    compare_steps("vae_step", runs, "")
+    compare_steps(label, runs, "")
 
 
 def check_vae_training(seed):
@@ -1428,12 +1482,14 @@ def check_cli(solver, cfg, seed):
           "skipped all of them", flush=True)
 
 
-def cli_config(root, location, filelist) -> str:
-    """Phase 19's YAML: ``configs/octfusion_snet_uncond.yaml`` with the
-    changes its first line lists."""
+def cli_config(root, location, filelist, base=None) -> str:
+    """Phase 19's YAML (and phase 21's, 22's with ``base``):
+    ``configs/octfusion_snet_uncond.yaml`` with the changes its first
+    line lists."""
     from octfusion_tpu_torch.config import dump_config, load_config
 
-    cfg = load_config(TRAIN_CONFIG)
+    base = base or TRAIN_CONFIG
+    cfg = load_config(base)
     cfg = dataclasses.replace(
         cfg, data=dataclasses.replace(cfg.data, location=location,
                                       filelist=filelist),
@@ -1446,7 +1502,7 @@ def cli_config(root, location, filelist) -> str:
     with open(path) as fh:
         body = fh.read()
     with open(path, "w") as fh:
-        fh.write("# configs/octfusion_snet_uncond.yaml with these changes: "
+        fh.write(f"# {os.path.relpath(base, REPO)} with these changes: "
                  "data.location and data.filelist (a seeded lumpy-sphere\n"
                  "# set), train.print_freq 1, train.save_latest_freq 2, "
                  f"train.display_freq 3, solver.resolution "
@@ -1975,6 +2031,522 @@ def check_three_stage(seed, steps):
     return measured, launches
 
 
+# ----------------------------------------------------------------------
+# phase 21: the colour VAE
+# ----------------------------------------------------------------------
+def color_setup(seed):
+    """The colour VAE of ``configs/vae_snet_color.yaml`` on the card ->
+    (solver, config, the batch-2 batch with ``point_colors``, eps, its
+    graph, the (level, C, C') of every graph conv of a train step)."""
+    from octfusion_tpu_torch.config import load_config
+    from octfusion_tpu_torch.models.common import batch_to_graph
+    from octfusion_tpu_torch.models.vae_solver import VAESolver
+    from octfusion_tpu_torch.utils.shapes import lumpy_sphere_batch
+
+    dev = torch.device("cuda")
+    cfg = load_config(COLOR_CONFIG)
+    torch.manual_seed(seed)
+    solver = VAESolver(cfg, device=dev)
+    batch = lumpy_sphere_batch(VAE_BATCH, cfg.data.points_per_shape,
+                               cfg.data.point_sample_num, seed + 30,
+                               device=dev, colors=True)
+    eps = torch.randn(solver.code_shape(VAE_BATCH), device=dev,
+                      generator=torch.Generator(device=dev).manual_seed(
+                          seed + 31))
+    g = batch_to_graph(batch["points"], batch["normals"], solver.spec1,
+                       solver.edge_factor,
+                       features=batch["point_colors"])[1]
+    print_graph("color vae", g)
+    shapes = set()
+    hooks = conv_shape_hooks([solver.vae], shapes)
+    with torch.no_grad():
+        solver.vae(g, g, eps=eps)
+    for h in hooks:
+        h.remove()
+    return solver, cfg, batch, eps, g, shapes
+
+
+def check_color_vae(seed):
+    """Phase 21: the colour VAE at full width -> (K1 / K2 / K3
+    measurements at its training shapes, the launches of its training
+    run, reconstruction and CLI run)."""
+    from octfusion_tpu_torch.config import load_config
+    from octfusion_tpu_torch.nn.modules import GraphConv
+    from octfusion_tpu_torch.ops import graph_conv_cuda as k
+    from octfusion_tpu_torch.utils.shapes import write_shapenet_set
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    solver, cfg, batch, eps, g, shapes = color_setup(seed)
+    m = cfg.model
+    # (a) the kernels at every (level, C, C') of the step; conv1 reads
+    # 4 ND + 3 RGB + 7 node-type channels, not a multiple of 4
+    conv1 = (m.depth, m.channel_in + m.depth - 1, m.channels[m.depth])
+    if conv1 not in shapes or conv1[1] % 4 == 0:
+        raise AssertionError(f"colour conv1 shape {conv1} not in {shapes}")
+    gen = torch.Generator(device=dev).manual_seed(seed + 32)
+    measured = {"graph_conv_fwd": check_kernel(g, shapes, gen),
+                **check_backward_kernels(g, shapes, gen)}
+    for name, label in (("graph_conv_fwd", "k1 phase 21 (colour vae)"),
+                        ("graph_conv_col", "k2 phase 21 (colour vae)"),
+                        ("graph_conv_bwd_dx", "k3 phase 21 (colour vae)")):
+        measured[name].summary(label)
+    del g
+    # (b) one step card vs CPU, then COLOR_TRAIN_STEPS steps
+    check_vae_step(solver, cfg, batch, seed + 33, label="color_vae_step")
+    colour_terms = tuple(f"color_loss_{d}"
+                         for d in range(m.depth_stop, m.depth_out + 1))
+    launches = run_steps("color vae train", solver.make_train_step(), batch,
+                         COLOR_TRAIN_STEPS, True, falling=colour_terms,
+                         eps=eps)
+    launches = {name: launches[name] for name in measured}
+    # (c) reconstruction of the 2 shapes
+    k.reset_launches()
+    GraphConv.calls = 0
+    sdfs, out = solver.reconstruct(batch)
+    rec, calls = k.launches["graph_conv_fwd"], GraphConv.calls
+    cols = out["colors"][m.depth_out][m.depth_out]
+    print("color vae reconstruct: " + " ".join(
+        f"{n}_s={v:.3f}" for n, v in out["seconds"].items())
+        + f" resolution={sdfs.shape[1]} k1_launches={rec} graph_conv_calls="
+        f"{calls} colors d{m.depth_out} shape={tuple(cols.shape)} "
+        f"min={cols.min().item():.4f} max={cols.max().item():.4f}",
+        flush=True)
+    want = (VAE_BATCH,) + (cfg.solver.resolution,) * 3
+    if (tuple(sdfs.shape) != want or not torch.isfinite(sdfs).all()
+            or not torch.isfinite(cols).all() or not rec == calls > 0):
+        raise AssertionError(f"colour reconstruct: sdf {tuple(sdfs.shape)}"
+                             f" (want {want}), launches {rec} vs {calls}")
+    launches["graph_conv_fwd"] += rec
+    del sdfs, out, solver
+    # (d) the train CLI on a ShapeNet-format set with color.npz
+    with tempfile.TemporaryDirectory() as root:
+        location, filelist = write_shapenet_set(
+            os.path.join(root, "data"), COLOR_CLI_SHAPES, CLI_DATA_POINTS,
+            load_config(COLOR_CONFIG).data.point_scale, seed, colors=True)
+        cfg_path = cli_config(root, location, filelist, base=COLOR_CONFIG)
+        lines, f, _ = run_cli("color vae train", [
+            "--model", "vae", "--name", "cvae", "--config", cfg_path,
+            "--logs_dir", root, "--seed", str(seed), "--batch_size",
+            str(VAE_BATCH), "--max_steps", str(COLOR_CLI_STEPS)])
+        if not any(f"color_loss_{m.depth_out}" in ln for ln in lines):
+            raise AssertionError("the colour CLI printed no colour loss")
+        for name, n in check_cli_launches("color vae train", f).items():
+            launches[name] += n
+    print(f"phase 21: {time.perf_counter() - t_phase:.1f} s; launches "
+          f"{launches}", flush=True)
+    return measured, launches
+
+
+# ----------------------------------------------------------------------
+# phase 22: data parallelism on the one card
+# ----------------------------------------------------------------------
+def _digests(tensors):
+    """[n, 2] int64 digests of a list of float32 tensors (the sum of the
+    bit patterns, and of the bit patterns weighted by position): equal
+    digests on two ranks mean equal bits, but for a collision."""
+    out = []
+    for t in tensors:
+        bits = t.detach().contiguous().view(torch.int32).reshape(-1).long()
+        pos = torch.arange(1, bits.numel() + 1, device=bits.device)
+        out.append(torch.stack([bits.sum(), (bits * pos).sum()]))
+    return torch.stack(out)
+
+
+def _same_on_every_rank(tensors) -> bool:
+    import torch.distributed as tdist
+
+    mine = _digests(tensors).cpu()     # gloo gathers host tensors only
+    every = [torch.empty_like(mine) for _ in range(tdist.get_world_size())]
+    tdist.all_gather(every, mine)
+    return all(torch.equal(every[0], d) for d in every[1:])
+
+
+def _replay(make_solver, net_of, shards, draws, make_step):
+    """The one-process replay of a DP step: each shard's loss and backward
+    with its draws, the gradients averaged, one optimizer (and EMA) step
+    -> (the step, the mean loss, the per-shard ms)."""
+    solver = make_solver()
+    step = make_step(solver)
+    net = net_of(solver)
+    net.train()
+    grads, losses, walls = None, [], []
+    for shard, kw in zip(shards, draws):
+        step.optimizer.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, _ = solver.loss_fn(shard, **kw)
+        loss.backward()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss.detach())
+        g = {n: p.grad.clone() for n, p in net.named_parameters()
+             if p.grad is not None}
+        grads = g if grads is None else {n: grads[n] + v
+                                         for n, v in g.items()}
+    for n, p in net.named_parameters():
+        if n in grads:
+            p.grad = grads[n] / len(shards)
+    step.apply_gradients()
+    return step, torch.stack(losses).mean().item(), walls
+
+
+def _compare_replay(label, out, net, step, replay, replay_loss):
+    """A DP step's loss, parameters (and EMA) against the replay's, at
+    phase 7's tolerances -> the worst share of the tolerance."""
+    torch.testing.assert_close(torch.tensor(float(out["loss"])),
+                               torch.tensor(replay_loss), **TOL_STEP)
+    rnet = dict(replay.solver.vae.named_parameters()
+                if label.startswith("vae") else
+                replay.solver.df.named_parameters())
+    share = 0.0
+    pairs = [(n, p, rnet[n]) for n, p in net.named_parameters()]
+    pairs += [(f"ema {n}", e, replay.ema[n])
+              for n, e in getattr(step, "ema", {}).items()]
+    for n, a, b in pairs:
+        torch.testing.assert_close(a, b, **TOL_STEP, msg=f"{label} {n}")
+        share = max(share, ((a - b).abs() / (TOL_STEP["atol"] + TOL_STEP[
+            "rtol"] * b.abs())).max().item())
+    return share
+
+
+def _dp_rank(rank, path):
+    """One of phase 22(a)/(b)'s two ranks (gloo, both on cuda:0, under
+    deterministic algorithms): the hr DP step at global batch 4 and the
+    VAE's on the query axis; rank 0 replays each in one process -> this
+    rank's report."""
+    from octfusion_tpu_torch.config import load_config
+    from octfusion_tpu_torch.models.union_solver import UnionSolver
+    from octfusion_tpu_torch.models.vae_solver import VAESolver
+    from octfusion_tpu_torch.ops import graph_conv_cuda as k
+    from octfusion_tpu_torch.parallel import dist as pdist
+    from octfusion_tpu_torch.parallel import train_step as pts
+    from octfusion_tpu_torch.parallel.mesh import make_mesh
+    from octfusion_tpu_torch.utils.device import use_fp32_math
+
+    dev = pdist.local_device("cuda")
+    torch.cuda.set_device(dev)
+    use_fp32_math()
+    torch.use_deterministic_algorithms(True)
+    inp = torch.load(path, weights_only=False)
+    cfg = load_config(TRAIN_CONFIG)
+    res = {"device": str(dev)}
+    k.reset_launches()
+
+    def hr_solver():
+        s = UnionSolver(cfg, device=dev)
+        s.df.load_state_dict(inp["df"])
+        s.vae.load_state_dict(inp["vae"])
+        return s
+
+    def vae_solver():
+        s = VAESolver(cfg, device=dev)
+        s.vae.load_state_dict(inp["vae"])
+        return s
+
+    for label, mesh, make, net_of, vae in (
+            ("hr", make_mesh(2, 1), hr_solver, lambda s: s.df, False),
+            ("vae", make_mesh(1, 2), vae_solver, lambda s: s.vae, True)):
+        batch = to_device(inp[f"{label}_batch"], dev)
+        draws = [to_device(d, dev) for d in inp[f"{label}_draws"]]
+        solver = make()
+        step = (pts.make_vae_dp_train_step(solver, mesh, 100) if vae
+                else pts.make_union_dp_train_step(solver, mesh))
+        net = net_of(solver)
+        out = step(pts.shard_batch(batch, mesh, vae, rank), **draws[rank])
+        torch.cuda.synchronize()
+        same = _same_on_every_rank(
+            list(net.parameters()) + list(getattr(step, "ema", {}).values()))
+        rep = {"loss": float(out["loss"]), "identical": same}
+        if rank == 0:
+            shards = [pts.shard_batch(batch, mesh, vae, r) for r in range(2)]
+            counted = dict(k.launches)     # the replay's do not count
+            replay, loss, walls = _replay(
+                make, net_of, shards, draws,
+                (lambda s: s.make_train_step(100)) if vae
+                else (lambda s: s.make_train_step()))
+            rep["share_of_tol"] = _compare_replay(label, out, net, step,
+                                                  replay, loss)
+            rep["replay_loss"] = loss
+            rep["single_ms"] = statistics.median(walls)
+            k.launches.update(counted)
+            del replay
+        pdist.barrier()
+        # timing: DP_TIMED_STEPS more steps (the ranks share the card), and
+        # the profiled one below
+        walls = []
+        for _ in range(DP_TIMED_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(pts.shard_batch(batch, mesh, vae, rank), **draws[rank])
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        rep.update(dp_ms=statistics.median(walls),
+                   allreduce_bytes=step.sync.bytes,
+                   allreduce_ms=statistics.median(step.sync.seconds) * 1e3)
+        if rank == 0:
+            rep["idle_share"] = _idle_share(lambda: step(
+                pts.shard_batch(batch, mesh, vae, rank), **draws[rank]))
+        else:
+            step(pts.shard_batch(batch, mesh, vae, rank), **draws[rank])
+        res[label] = rep
+        del solver, step, net
+        torch.cuda.empty_cache()
+    res["launches"] = dict(k.launches)
+    torch.use_deterministic_algorithms(False)
+    return res
+
+
+def _idle_share(fn) -> float:
+    """1 - (the device time of this process's kernels and copies in one
+    call of ``fn``) / (the call's wall time): the share of the call in
+    which this process left the card idle (the other rank's kernels on
+    the shared card are not in its trace)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy = sum(e.device_time_total for e in prof.events()
+               if e.device_type == DeviceType.CUDA) / 1e6
+    return 1.0 - busy / wall if busy > 0 else float("nan")
+
+
+def dp_inputs(seed, path):
+    """Phase 22(a)/(b)'s weights (the snet config's, perturbed), batches
+    and each rank's draws, saved to ``path``."""
+    from octfusion_tpu_torch.config import load_config
+    from octfusion_tpu_torch.models.union_solver import UnionSolver
+    from octfusion_tpu_torch.utils.shapes import (lumpy_sphere_batch,
+                                                  lumpy_spheres)
+
+    cfg = load_config(TRAIN_CONFIG)
+    torch.manual_seed(seed)
+    s = UnionSolver(cfg, device="cpu")
+    perturb_([s.df, s.vae], torch.Generator().manual_seed(seed + 40))
+    b = cfg.data.batch_size
+    pts, nrm = lumpy_spheres(b, cfg.data.points_per_shape, seed + 41)
+    gen = torch.Generator().manual_seed(seed + 42)
+    shape = s.code_shape(b // 2)
+    hr_draws = [{"eps": torch.randn(shape, generator=gen),
+                 "times": torch.rand(b // 2, generator=gen),
+                 "noise": torch.randn(shape, generator=gen)}
+                for _ in range(2)]
+    vbatch = lumpy_sphere_batch(VAE_BATCH, cfg.data.points_per_shape,
+                                cfg.data.point_sample_num, seed + 43)
+    vshape = s.code_shape(VAE_BATCH)
+    torch.save({"df": s.df.state_dict(), "vae": s.vae.state_dict(),
+                "hr_batch": {"points": pts, "normals": nrm},
+                "hr_draws": hr_draws, "vae_batch": vbatch,
+                "vae_draws": [{"eps": torch.randn(vshape, generator=gen)}
+                              for _ in range(2)]}, path)
+
+
+def run_torchrun(label, nproc, argv, env=None):
+    """``python -m torch.distributed.run --standalone --nproc_per_node
+    nproc -m octfusion_tpu_torch.train argv`` -> (its stdout lines, the
+    key=value fields of each rank's summary line, wall seconds).  Raises
+    if it fails or a rank did not announce its place in the group."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", str(nproc), "-m", "octfusion_tpu_torch.train",
+           *argv]
+    t0 = time.perf_counter()
+    # its own session, so that a timeout kills the ranks with the launcher
+    proc = subprocess.Popen(cmd, cwd=REPO, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            start_new_session=True,
+                            env={**os.environ, **(env or {})})
+    try:
+        stdout, stderr = proc.communicate(timeout=CLI_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, 9)
+        proc.communicate()
+        raise
+    wall = time.perf_counter() - t0
+    lines = stdout.splitlines()
+    if proc.returncode != 0:
+        raise AssertionError(f"{label} failed ({proc.returncode}):\n"
+                             + "\n".join(lines[-20:])
+                             + f"\n{stderr[-3000:]}")
+    joined = [ln for ln in lines if ln.startswith("[*] rank ")]
+    if len(joined) != nproc:
+        raise AssertionError(f"{label}: {len(joined)} ranks announced, want "
+                             f"{nproc}:\n" + "\n".join(lines[-20:]))
+    summary = [ln for ln in lines if ln.startswith(("[*] trained",
+                                                    "[*] generated"))]
+    fields = [dict(tok.split("=", 1) for tok in ln.split() if "=" in tok)
+              for ln in summary]
+    print(f"cli {label}: wall_s={wall:.3f} | " + " | ".join(joined)
+          + "".join(f" | {ln}" for ln in summary), flush=True)
+    return lines, fields, wall
+
+
+def _same_meshes(dir_a, dir_b, names) -> str:
+    """Whether the meshes ``names`` in two directories are the same bytes,
+    or else the same faces with vertices within K1's tolerance; raises
+    otherwise -> "bit-identical" or the largest vertex difference."""
+    from octfusion_tpu_torch.utils import mesh as mesh_utils
+
+    worst = 0.0
+    for n in names:
+        a, b = os.path.join(dir_a, n), os.path.join(dir_b, n)
+        with open(a, "rb") as fa, open(b, "rb") as fb:
+            if fa.read() == fb.read():
+                continue
+        va, fa_ = mesh_utils.load_obj(a)
+        vb, fb_ = mesh_utils.load_obj(b)
+        if va.shape != vb.shape or not np.array_equal(fa_, fb_):
+            raise AssertionError(f"{n}: the striped run's mesh differs in "
+                                 "topology from one rank's")
+        worst = max(worst, float(np.abs(va - vb).max()))
+        if worst > TOL_KERNEL["atol"]:
+            raise AssertionError(f"{n}: vertices differ by {worst:.3e}")
+    return "bit-identical" if worst == 0 else f"max_vertex_diff={worst:.3e}"
+
+
+def check_data_parallel(seed):
+    """Phase 22: data parallelism on the one card -> the launches of its
+    main-path runs (the DP steps, the torchrun CLI runs, striped
+    generation, the sharded evaluation)."""
+    from octfusion_tpu_torch.config import load_config
+    from octfusion_tpu_torch.metrics.distances import pairwise_cd_emd
+    from octfusion_tpu_torch.models.union_solver import UnionSolver
+    from octfusion_tpu_torch.ops import chamfer_cuda
+    from octfusion_tpu_torch.parallel import launch
+    from octfusion_tpu_torch.train import main as train_main
+    from octfusion_tpu_torch.train import restore_training
+    from octfusion_tpu_torch.utils import ckpt
+    from octfusion_tpu_torch.utils.shapes import write_shapenet_set
+
+    t_phase = time.perf_counter()
+    launches = dict.fromkeys(("graph_conv_fwd", "graph_conv_col",
+                              "graph_conv_bwd_dx", "graph_conv_fwd_packed",
+                              "chamfer"), 0)
+    with tempfile.TemporaryDirectory() as root:
+        # (a) + (b): two gloo ranks on cuda:0
+        path = os.path.join(root, "dp_inputs.pt")
+        dp_inputs(seed, path)
+        torch.cuda.empty_cache()   # the ranks share the card with this one
+        t0 = time.perf_counter()
+        ranks = launch.spawn(_dp_rank, 2, args=(path,), backend="gloo",
+                             device="cuda", timeout=DP_TIMEOUT)
+        wall = time.perf_counter() - t0
+        for label in ("hr", "vae"):
+            r0, r1 = ranks[0][label], ranks[1][label]
+            if not (r0["identical"] and r1["identical"]):
+                raise AssertionError(f"dp {label}: the ranks' parameters "
+                                     "differ")
+            if r0["loss"] != r1["loss"]:
+                raise AssertionError(f"dp {label}: the ranks' averaged "
+                                     f"losses differ: {r0['loss']} vs "
+                                     f"{r1['loss']}")
+            print(f"dp {label} step (2 gloo ranks on {ranks[0]['device']}, "
+                  f"{'data 1 x model 2' if label == 'vae' else 'data 2'}):"
+                  f" loss={r0['loss']:.6f} replay_loss="
+                  f"{r0['replay_loss']:.6f} params_and_ema_vs_replay "
+                  f"share_of_tol={r0['share_of_tol']:.3f} tol=rtol "
+                  f"{TOL_STEP['rtol']:g} atol {TOL_STEP['atol']:g} "
+                  f"ranks_identical=True dp_step_ms={r0['dp_ms']:.3f} "
+                  f"(median of {DP_TIMED_STEPS}, both ranks on one card) "
+                  f"single_process_shard_ms={r0['single_ms']:.3f} "
+                  f"(forward + backward of one rank's shard) allreduce_bytes="
+                  f"{r0['allreduce_bytes']} allreduce_ms="
+                  f"{r0['allreduce_ms']:.3f} idle_share_rank0="
+                  f"{r0['idle_share']:.3f}", flush=True)
+        for r in ranks:
+            for name, n in r["launches"].items():
+                launches[name] += n
+        print(f"phase 22(a,b): {wall:.1f} s; launches "
+              f"{[r['launches'] for r in ranks]}", flush=True)
+        # (c) the train CLI under torchrun, one rank (NCCL)
+        location, filelist = write_shapenet_set(
+            os.path.join(root, "data"), CLI_DATA_SHAPES, CLI_DATA_POINTS,
+            load_config(TRAIN_CONFIG).data.point_scale, seed)
+        cfg_path = cli_config(root, location, filelist)
+        base = ["--config", cfg_path, "--logs_dir", root, "--seed",
+                str(seed)]
+        lines, fields, _ = run_torchrun("torchrun hr train", 1, base + [
+            "--model", "union", "--stage", "hr", "--name", "hr",
+            "--batch_size", "4", "--max_steps", str(DP_CLI_STEPS)])
+        if "(nccl)" not in " ".join(lines):
+            raise AssertionError("the torchrun CLI did not join over NCCL")
+        for name, n in check_cli_launches("torchrun hr train",
+                                          fields[-1]).items():
+            launches[name] += n
+        hr_ckpt = os.path.join(root, "hr", "ckpt", "steps-latest")
+        plain = UnionSolver(load_config(cfg_path), device="cuda")
+        step = plain.make_train_step()
+        restore_training(step, ckpt.restore(hr_ckpt))
+        if step.step != DP_CLI_STEPS:
+            raise AssertionError(f"the torchrun checkpoint is at step "
+                                 f"{step.step}")
+        del plain, step
+        # (d) striped generation: 2 gloo ranks on the card vs one process
+        gen = ["--model", "union", "--stage", "hr", "--mode", "generate",
+               "--count", str(CLI_SHAPES), "--sampler", "dpmpp",
+               "--sample_steps", str(DPMPP_STEPS), "--ckpt", hr_ckpt]
+        kpack = {"OCTFUSION_CONV_KPACK": "1"}
+        lines, fields, _ = run_torchrun(
+            "striped generate (2 ranks)", 2, base + gen + ["--name", "gen2"],
+            env=kpack)
+        if " ".join(lines).count("(gloo)") != 2:
+            raise AssertionError("the 2 ranks sharing the card did not both "
+                                 "join over gloo")
+        for f in fields:
+            for name in ("graph_conv_fwd", "graph_conv_fwd_packed"):
+                launches[name] += int(f.get(f"{name}_launches", 0))
+        if not sum(int(f.get("graph_conv_fwd_packed_launches", 0))
+                   for f in fields):
+            raise AssertionError("striped generation launched no K5")
+        # the reference: the same CLI in this process (no process group);
+        # its launches are not counted
+        os.environ.update(kpack)
+        t0 = time.perf_counter()
+        try:
+            train_main(base + gen + ["--name", "gen1"])
+        finally:
+            del os.environ["OCTFUSION_CONV_KPACK"]
+        print(f"generate (1 process): wall_s={time.perf_counter() - t0:.3f}",
+              flush=True)
+        names = [f"{i}.obj" for i in range(CLI_SHAPES)]
+        dirs = [os.path.join(root, n, "results_airplane")
+                for n in ("gen2", "gen1")]
+        for d in dirs:
+            if sorted(os.listdir(d)) != names:
+                raise AssertionError(f"{d} holds {sorted(os.listdir(d))}")
+        print(f"striped generation: {CLI_SHAPES} shapes, 2 ranks vs 1 "
+              f"process: {_same_meshes(*dirs, names)}", flush=True)
+    # (e) the sharded evaluation: rows of each tile over two devices
+    dev = torch.device("cuda")
+    gen_c = torch.Generator(device=dev).manual_seed(seed + 44)
+    a = torch.rand(DP_EVAL_SETS, EVAL_POINTS, 3, device=dev,
+                   generator=gen_c) - 0.5
+    b = torch.rand(DP_EVAL_SETS, EVAL_POINTS, 3, device=dev,
+                   generator=gen_c) - 0.5
+    cd1, em1 = pairwise_cd_emd(a, b, EVAL_BATCH, True, EVAL_ROW_BLOCK)
+    chamfer_cuda.reset_launches()
+    t0 = time.perf_counter()
+    cd2, em2 = pairwise_cd_emd(a, b, EVAL_BATCH, True, EVAL_ROW_BLOCK,
+                               shard_devices=["cuda:0", "cuda:0"])
+    t_shard = time.perf_counter() - t0
+    launches["chamfer"] += chamfer_cuda.launches["chamfer"]
+    if not (np.array_equal(cd1, cd2) and np.array_equal(em1, em2)):
+        raise AssertionError("the sharded matrices differ from the "
+                             "unsharded ones")
+    print(f"sharded eval: {DP_EVAL_SETS} x {DP_EVAL_SETS} pairs over "
+          f"['cuda:0', 'cuda:0'] bit-identical to unsharded, wall_s="
+          f"{t_shard:.3f} k4_launches={chamfer_cuda.launches['chamfer']}",
+          flush=True)
+    print(f"phase 22: {time.perf_counter() - t_phase:.1f} s; launches "
+          f"{launches}", flush=True)
+    return launches
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=200,
@@ -2143,6 +2715,16 @@ def main(argv=None):
     for name, stats in measured_3t.items():
         measured[name].merge(stats)
         launches[name] += launches_3t[name]
+
+    # ---- 21. the colour VAE -------------------------------------------
+    measured_c, launches_c = check_color_vae(args.seed)
+    for name, stats in measured_c.items():
+        measured[name].merge(stats)
+        launches[name] += launches_c[name]
+
+    # ---- 22. data parallelism on the one card -------------------------
+    for name, n in check_data_parallel(args.seed).items():
+        launches[name] += n
 
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)

@@ -122,6 +122,11 @@ class TrainConfig:
 
 @dataclasses.dataclass(frozen=True)
 class MeshConfig:
+    """The data-parallel mesh of a multi-process training run
+    (``parallel.mesh.make_mesh``): ``data_axis`` x ``model_axis`` ranks,
+    -1 = every rank the model axis leaves.  Their product must equal the
+    number of processes (``make_mesh`` raises otherwise); a single process
+    ignores them."""
     data_axis: int = -1
     model_axis: int = 1
 

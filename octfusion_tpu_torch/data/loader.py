@@ -53,14 +53,20 @@ class DataLoader:
     in the sampler's order, with up to ``PREFETCH`` batches in flight."""
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = True,
-                 seed: int = 0, num_workers: int = 2):
+                 seed: int = 0, num_workers: int = 2, rank: int = 0,
+                 world_size: int = 1):
+        """``rank`` / ``world_size`` stripe the sampler: under data
+        parallelism, the data index and the data axis's size."""
         self.dataset = dataset
         self.batch_size = batch_size
-        self.sampler = InfiniteSampler(len(dataset), shuffle, seed)
+        self.sampler = InfiniteSampler(len(dataset), shuffle, seed, rank,
+                                       world_size)
         self.num_workers = max(1, num_workers)
 
     def __len__(self):
-        return max(1, len(self.dataset) // self.batch_size)
+        """Batches per epoch of this rank's stripe."""
+        return max(1, len(self.dataset)
+                   // (self.batch_size * self.sampler.world_size))
 
     def _batch(self, idxs):
         return collate([self.dataset[i] for i in idxs])

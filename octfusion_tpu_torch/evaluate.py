@@ -7,11 +7,12 @@ run on the device and give 1-NNA, COV and MMD (``metrics/1-NNA.py`` /
 
     python -m octfusion_tpu_torch.evaluate --samples 'out/*.obj' \\
         --reference 'ref/*.obj' [--points 2048] [--emd] [--emd_bf16] \\
-        [--batch 8] [--device cuda] [--out result.json]
+        [--batch 8] [--shard] [--device cuda] [--out result.json]
 
 It runs on the card; ``--device cpu`` asks for the CPU.  Prints the result
 as JSON, with the wall seconds of the surface sampling and of the pairwise
-metrics.  Shading FID and the device-sharded tile loop are not ported.
+metrics.  ``--shard`` splits the pair tiles' rows over every visible card
+(no collectives; the same matrices).  Shading FID is not ported.
 """
 
 from __future__ import annotations
@@ -54,6 +55,9 @@ def main(argv=None):
     p.add_argument("--emd_bf16", action="store_true",
                    help="store the EMD auction matrices in bfloat16")
     p.add_argument("--batch", type=int, default=8)
+    p.add_argument("--shard", action="store_true",
+                   help="split the pairwise tile grid's rows over every "
+                        "visible card (no collectives)")
     p.add_argument("--device", default="cuda",
                    help="'cuda' (default) or 'cpu'")
     p.add_argument("--out", default=None, help="also write the JSON here")
@@ -76,7 +80,7 @@ def main(argv=None):
     t1 = time.perf_counter()
     res = evaluation.evaluate_point_sets(
         sp, rp, batch=args.batch, emd=args.emd, emd_bf16=args.emd_bf16,
-        device=device)
+        device=device, shard_devices="auto" if args.shard else None)
     res["wall_s_pointcloud_sampling"] = t_sample
     res["wall_s_pairwise_metrics"] = time.perf_counter() - t1
     print(json.dumps(res, indent=2), flush=True)

@@ -1,14 +1,17 @@
 """Generate shapes with the union diffusion model: the counterpart of
 ``train.py --model union --stage hr --mode generate`` (and of ``--model
-union_3t --stage feature``) on one device.
+union_3t --stage feature``) on one card or, under ``torchrun``, striped
+over one process per rank: rank r makes shapes r, r + W, ...
+(``parallel.train_step.stripe``, with no collective; ranks beyond the
+host's cards share them over gloo).
 
     python -m octfusion_tpu_torch.generate \\
         --config configs/octfusion_snet_uncond.yaml --name run --count 4 \\
         --sampler dpmpp --sample_steps 25 [--device cpu]
 
-Each shape runs the whole cascade (``UnionSolver.sample``: lr sampling,
-grow, hr sampling, growing decode; with a 3-stage config, whose
-``diffusion.unet_type`` is lr, hr, feature, ``Union3TSolver.sample``: lr,
+Each shape runs the whole cascade (``UnionSolver.dp_cascade``: lr
+sampling, grow, hr sampling, growing decode; with a 3-stage config, whose
+``diffusion.unet_type`` is lr, hr, feature, ``Union3TSolver``'s: lr,
 grow6, hr, grow8, feature, decode), then the SDF grid and marching
 tetrahedra on the device, and is written to
 ``<logs_dir>/<name>/results_<category>/<i>.obj``.  The diffusion model takes
@@ -44,6 +47,9 @@ from .data.shapenet import category_5_to_label
 from .models.union_3t_solver import Union3TSolver
 from .models.union_solver import UnionSolver
 from .ops import graph_conv_cuda
+from .parallel import dist as pdist
+from .parallel.mesh import make_mesh
+from .parallel.train_step import stripe
 from .utils import ckpt as ckpt_lib
 from .utils import params as params_lib
 from .utils import sdf as sdf_utils
@@ -108,17 +114,31 @@ def _load_weights(solver, args, ckpt_dir) -> None:
 
 def main(argv=None):
     args = parse_args(argv)
-    dev = resolve_device(args.device)
+    joined = pdist.maybe_initialize(args.device)
+    try:
+        return _generate(args, joined)
+    finally:
+        if joined:
+            pdist.shutdown()
+
+
+def _generate(args, joined: bool):
+    dev = resolve_device(pdist.local_device(args.device))
+    if dev.type == "cuda" and dev.index is not None:
+        torch.cuda.set_device(dev)
     use_fp32_math()
+    if joined:
+        pdist.announce(dev)
     cfg = configure(args)
     run_dir = os.path.join(cfg.train.logs_dir, cfg.train.name)
     rdir = os.path.join(run_dir, f"results_{args.category}")
     os.makedirs(rdir, exist_ok=True)
 
-    todo = [i for i in range(args.count)
+    mine = stripe(range(args.count), make_mesh())
+    todo = [i for i in mine
             if not os.path.exists(os.path.join(rdir, f"{i}.obj"))]
-    if len(todo) < args.count:
-        print(f"[*] {args.count - len(todo)}/{args.count} meshes already "
+    if len(todo) < len(mine):
+        print(f"[*] {len(mine) - len(todo)}/{len(mine)} meshes already "
               "present; generating the rest")
     if not todo:
         return []
@@ -141,13 +161,11 @@ def main(argv=None):
     for i in todo:
         path = os.path.join(rdir, f"{i}.obj")
         gen = torch.Generator(device=dev).manual_seed(shape_seed(args.seed, i))
-        out = solver.sample(batch_size=1, label=label, generator=gen,
-                            compute_sdf=False)
-        if bool(out["overflow"]):
+        dec = solver.dp_cascade(label=label, generator=gen)
+        if bool(dec["overflow"]):
             print(f"[!] static capacity overflow while generating {path} -- "
                   "raise capacity.finest_cap/edge_factor")
-        dec = out["decode_out"]
-        seconds = dict(out["seconds"])
+        seconds = dict(dec["seconds"])
         t0 = time.perf_counter()
         sdfs = sdf_utils.calc_sdf(
             dec["reg_voxs"][m.depth_out], dec["octree_out"], m.full_depth,

@@ -9,9 +9,8 @@ matrices (port of ``octfusion_tpu/metrics/distances.py``).
   PyTorch (the JAX package computes it outside Pallas too);
 * ``pairwise_cd_emd`` — the [S, R] matrices over two cloud sets, in the
   JAX package's [row_block x batch] tiles of pairs: one K4 launch and one
-  batched auction per tile.
-
-The JAX package's device-sharded tile loop is not ported here.
+  batched auction per tile; with ``shard_devices`` each tile's row block
+  is split over several devices.
 """
 
 from __future__ import annotations
@@ -100,7 +99,8 @@ def _tile(rows: torch.Tensor, cols: torch.Tensor, emd: bool, store_dtype):
 
 def pairwise_cd_emd(sample: torch.Tensor, ref: torch.Tensor, batch: int = 16,
                     emd: bool = True, row_block: int = 4,
-                    emd_store_dtype=torch.float32, progress: str = None):
+                    emd_store_dtype=torch.float32, progress: str = None,
+                    shard_devices=None):
     """All-pairs Chamfer (+EMD) matrices between two point-cloud sets
     (``metrics/evaluation_metrics.py:111-154`` of the reference): sample
     [S, P, 3], ref [R, P', 3] float32 on one device -> (cd [S, R],
@@ -110,20 +110,43 @@ def pairwise_cd_emd(sample: torch.Tensor, ref: torch.Tensor, batch: int = 16,
     column block padded by repeating their last cloud and the padding
     cropped from the result, as in the JAX package.  Peak device memory is
     a few [row_block * batch, P, P'] float32 matrices (the auction holds
-    d^2, the weights and the match)."""
+    d^2, the weights and the match).
+
+    ``shard_devices``: a list of devices (or ``"auto"``: every visible
+    CUDA device, or none when there is one) to split each tile's rows
+    over, as the JAX package's sharded loop does: every device computes
+    ``row_block`` rows of a [len(devices) * row_block x batch] tile, the
+    column block copied to each, with no collective.  None is the
+    sample's device alone.  Each device runs the same per-pair programs
+    on the same [row_block x batch] tile shape, so the matrices do not
+    depend on the number of devices, bit for bit."""
+    if shard_devices == "auto":
+        n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        shard_devices = ([torch.device("cuda", i) for i in range(n)]
+                         if n > 1 else None)
+    devices = ([torch.device(d) for d in shard_devices]
+               if shard_devices is not None else [sample.device])
+    rb = len(devices) * row_block
     s, r = sample.shape[0], ref.shape[0]
     cd = np.zeros((s, r), np.float32)
     em = np.zeros((s, r), np.float32)
     beat = _heartbeat(progress)
-    for i0 in range(0, s, row_block):
-        i1 = min(i0 + row_block, s)
-        rows = _pad_to(sample[i0:i1], row_block)
+    for i0 in range(0, s, rb):
+        i1 = min(i0 + rb, s)
+        rows = _pad_to(sample[i0:i1], rb)
+        parts = [rows[k * row_block:(k + 1) * row_block].to(dev)
+                 for k, dev in enumerate(devices)]
         for j0 in range(0, r, batch):
             j1 = min(j0 + batch, r)
-            cdv, emv = _tile(rows, _pad_to(ref[j0:j1], batch), emd,
-                             emd_store_dtype)
-            cd[i0:i1, j0:j1] = cdv.cpu().numpy()[: i1 - i0, : j1 - j0]
-            em[i0:i1, j0:j1] = emv.cpu().numpy()[: i1 - i0, : j1 - j0]
+            cols = _pad_to(ref[j0:j1], batch)
+            # every device's kernels are launched before any result is
+            # read back, so the devices work at once
+            tiles = [_tile(part, cols.to(dev), emd, emd_store_dtype)
+                     for part, dev in zip(parts, devices)]
+            cdv = torch.cat([t[0].cpu() for t in tiles]).numpy()
+            emv = torch.cat([t[1].cpu() for t in tiles]).numpy()
+            cd[i0:i1, j0:j1] = cdv[: i1 - i0, : j1 - j0]
+            em[i0:i1, j0:j1] = emv[: i1 - i0, : j1 - j0]
         beat(i1 * r, s * r)
     return cd, em
 

@@ -51,7 +51,7 @@ def compute_1_nna(
 
 def evaluate_point_sets(sample_pts, ref_pts, batch: int = 16,
                         emd: bool = True, emd_bf16: bool = False,
-                        device="cuda") -> Dict[str, float]:
+                        device="cuda", shard_devices=None) -> Dict[str, float]:
     """Full eval: sample / ref [S / R, P, 3] -> 1-NNA + COV / MMD for CD
     and EMD (the reference's ``metrics/1-NNA.py`` + ``metrics/cov_mmd.py``
     scripts), the three pairwise matrices computed on ``device``: the card
@@ -60,12 +60,14 @@ def evaluate_point_sets(sample_pts, ref_pts, batch: int = 16,
 
     ``emd_bf16`` stores the EMD auction's cross-round matrices in bfloat16
     (half their bytes; the costs stay within 2.5e-3 relative of float32);
-    the default is float32, like the reference's auction."""
+    the default is float32, like the reference's auction.
+    ``shard_devices`` splits the pair tiles' rows over several devices
+    (``distances.pairwise_cd_emd``); the metrics are the unsharded ones."""
     dev = resolve_device(device)
     store = torch.bfloat16 if emd_bf16 else torch.float32
     sp = torch.as_tensor(sample_pts, dtype=torch.float32, device=dev)
     rp = torch.as_tensor(ref_pts, dtype=torch.float32, device=dev)
-    kw = dict(emd_store_dtype=store)
+    kw = dict(emd_store_dtype=store, shard_devices=shard_devices)
     cd_sr, emd_sr = pairwise_cd_emd(sp, rp, batch, emd, progress="s-r", **kw)
     cd_ss, emd_ss = pairwise_cd_emd(sp, sp, batch, emd, progress="s-s", **kw)
     cd_rr, emd_rr = pairwise_cd_emd(rp, rp, batch, emd, progress="r-r", **kw)

@@ -17,18 +17,24 @@ from ..octree.octree import Octree, OctreeSpec, build_octree, merge_octrees
 
 
 def batch_to_octree(points: torch.Tensor, normals: torch.Tensor,
-                    spec_single: OctreeSpec) -> Octree:
-    """points, normals [B, N, 3] -> one merged octree of B samples."""
-    octs = [build_octree(points[i], normals[i], spec_single)
+                    spec_single: OctreeSpec,
+                    features: Optional[torch.Tensor] = None) -> Octree:
+    """points, normals [B, N, 3] (and per-point ``features`` [B, N, F],
+    e.g. colours, averaged into the signal) -> one merged octree of B
+    samples."""
+    octs = [build_octree(points[i], normals[i], spec_single,
+                         None if features is None else features[i])
             for i in range(points.shape[0])]
     return merge_octrees(octs) if len(octs) > 1 else octs[0]
 
 
 def batch_to_graph(points: torch.Tensor, normals: torch.Tensor,
                    spec_single: OctreeSpec, edge_factor: int = 9,
-                   up_to: Optional[int] = None):
-    """-> (octree, dual graph of levels full_depth..``up_to``, default all)."""
-    octree = batch_to_octree(points, normals, spec_single)
+                   up_to: Optional[int] = None,
+                   features: Optional[torch.Tensor] = None):
+    """-> (octree, dual graph of levels full_depth..``up_to``, default all);
+    ``features`` as in :func:`batch_to_octree`."""
+    octree = batch_to_octree(points, normals, spec_single, features)
     graph: DualGraph = build_dual_graph(octree, edge_factor, up_to=up_to)
     return octree, graph
 

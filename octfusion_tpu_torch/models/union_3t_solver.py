@@ -11,7 +11,8 @@ Stage layout (``configs/octfusion_obja_uncond.yaml``'s diffusion):
             middle).
 
 Training freezes the U-Nets of the earlier stages (``UnionSolver``'s
-``FROZEN``).  The multi-device cascade ``dp_cascade`` is not ported.
+``FROZEN``).  ``UnionSolver.dp_cascade`` runs this solver's three-hop
+cascade for one shape (data-parallel generation).
 """
 
 from __future__ import annotations

@@ -14,8 +14,9 @@ an octree and its dual graph on the device, the frozen VAE encoder gives
 the latent codes, and the hr U-Net learns to denoise them (``loss_fn``).
 ``make_train_step`` adds the backward pass, AdamW with StepLR(1000, 0.9)
 over the stage's trainable U-Nets (the hr stage freezes the lr U-Net) and
-the EMA.  Modules own their parameters; the JAX package's jit caches and
-compile warm-up have no counterpart here.
+the EMA.  ``dp_cascade`` is one shape's cascade, the body of data-parallel
+generation.  Modules own their parameters; the JAX package's jit caches
+and compile warm-up have no counterpart here.
 """
 
 from __future__ import annotations
@@ -313,6 +314,27 @@ class UnionSolver:
                              for s in out["sdfs"]]
             lap("marching")
         return out
+
+
+    @torch.no_grad()
+    def dp_cascade(self, label=None, steps: Optional[int] = None,
+                   generator=None, kpack: Optional[bool] = None,
+                   **noise) -> Dict:
+        """One shape's whole cascade at batch 1 from one ``generator``, the
+        per-rank body of data-parallel generation (``generate.py`` and
+        ``parallel.train_step.make_dp_sample``): lr sampling, grow (+ the
+        packed levels under ``kpack``), hr sampling (the 3-stage solver:
+        grow6, hr, grow8, feature), and ``decode_grow``.  ``noise`` takes
+        the stage noise streams of :meth:`sample`.  -> the growing decode's
+        dict, with "overflow" (a grown graph's cap truncated the shape) and
+        "seconds" (per stage); the caller evaluates the SDF grid."""
+        out = self.sample(batch_size=1, label=label, steps=steps,
+                          generator=generator, kpack=kpack,
+                          compute_sdf=False, **noise)
+        if "decode_out" not in out:
+            raise ValueError(f"the {self.stage_flag} stage decodes no shape")
+        return {**out["decode_out"], "overflow": out["overflow"],
+                "seconds": out["seconds"]}
 
 
 class TrainStep:

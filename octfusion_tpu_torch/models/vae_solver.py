@@ -1,10 +1,14 @@
 """Graph VAE training and reconstruction (port of
-``octfusion_tpu/models/vae_solver.py``, colour excepted).
+``octfusion_tpu/models/vae_solver.py``).
 
 Training: a batch's point clouds become an octree and its dual graph on
 the device, the VAE autoencodes it on that fixed topology, and the
 geometry loss (split cross-entropy, MPU SDF and gradient regression at the
 batch's SDF samples, KL) is minimised by AdamW with a poly(0.9) decay.
+The colour VAE (``loss.name: color``) reads per-point colours
+(``point_colors``) as 3 more input channels, predicts per-node colours
+and adds their regression at the first ``COLOR_POINTS`` surface points of
+each sample (``losses.geometry_color_loss``).
 Reconstruction encodes, copies the input's topology up to ``depth_stop``,
 grows the rest in the decoder, evaluates the dense SDF grid and, on
 request, writes meshes.  The JAX package's jit caches and compact-cell
@@ -25,14 +29,16 @@ from ..utils import sdf as sdf_utils
 from ..utils.device import resolve_device, use_fp32_math
 from .common import Laps, batch_to_graph, code_shape, flatten_pos
 
+# surface points per sample that supervise the colour VAE's colours
+COLOR_POINTS = 4096
+
 
 class VAESolver:
     def __init__(self, cfg: Config, device="cuda"):
         """Runs on the card unless ``device="cpu"``; without a card the
         default raises."""
-        if cfg.loss.name == "color":
-            raise NotImplementedError("the colour VAE is not ported")
         self.cfg = cfg
+        self.use_color = cfg.loss.name == "color"
         self.device = resolve_device(device)
         use_fp32_math()
         m = cfg.model
@@ -41,6 +47,7 @@ class VAESolver:
             depth_stop=m.depth_stop, depth_out=m.depth_out,
             embed_dim=m.embed_dim, resblk_num=m.resblk_num,
             channels=tuple(m.channels), use_checkpoint=m.use_checkpoint,
+            color_channel=3 if self.use_color else 0,
         ).to(self.device)
         self.spec1 = cfg.capacity.octree_spec(m.depth, m.full_depth, 1)
         self.edge_factor = cfg.capacity.edge_factor
@@ -60,27 +67,44 @@ class VAESolver:
         return opt, torch.optim.lr_scheduler.LambdaLR(
             opt, lambda k: (1.0 - min(k / steps, 1.0)) ** 0.9)
 
+    def _features(self, batch):
+        """The octree's per-point input features: the colours of a colour
+        VAE's batch, else none."""
+        if self.use_color and "point_colors" in batch:
+            return batch["point_colors"]
+        return None
+
     def loss_fn(self, batch, eps: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None, lap=None):
         """-> (loss, dict of every loss term, "loss" and "overflow") of one
         batch: ``points`` / ``normals`` [B, N, 3] and the SDF samples
-        ``pos`` [B, M, 3], ``sdf`` [B, M], ``grad`` [B, M, 3].  The
+        ``pos`` [B, M, 3], ``sdf`` [B, M], ``grad`` [B, M, 3] (and, for the
+        colour VAE, ``point_colors`` [B, N, 3]).  The
         posterior's ``eps`` comes from ``generator`` unless given;
         ``lap(name)``, if given, is called after the graph build and after
         the loss."""
         lap = lap or (lambda name: None)
         m = self.cfg.model
         _, g = batch_to_graph(batch["points"], batch["normals"], self.spec1,
-                              self.edge_factor)
+                              self.edge_factor,
+                              features=self._features(batch))
         lap("graph")
         out = self.vae(g, g, eps=eps, generator=generator)
         pos, pb = flatten_pos(batch["pos"])
-        ld = losses.geometry_loss(
-            out, pos, pb, batch["sdf"].reshape(-1),
-            batch["grad"].reshape(-1, 3), m.full_depth, m.depth_stop,
-            m.depth_out, kl_weight=self.cfg.loss.kl_weight,
-            loss_type=self.cfg.loss.loss_type,
-            spatial_grad=self.cfg.loss.spatial_grad)
+        sdf_gt, grad_gt = batch["sdf"].reshape(-1), batch["grad"].reshape(-1, 3)
+        kw = dict(kl_weight=self.cfg.loss.kl_weight,
+                  loss_type=self.cfg.loss.loss_type)
+        if self.use_color:
+            k = min(COLOR_POINTS, batch["points"].shape[1])
+            cpos, cb = flatten_pos(batch["points"][:, :k])
+            ld = losses.geometry_color_loss(
+                out, pos, pb, sdf_gt, grad_gt, cpos, cb,
+                batch["point_colors"][:, :k].reshape(-1, 3), m.full_depth,
+                m.depth_stop, m.depth_out, **kw)
+        else:
+            ld = losses.geometry_loss(
+                out, pos, pb, sdf_gt, grad_gt, m.full_depth, m.depth_stop,
+                m.depth_out, spatial_grad=self.cfg.loss.spatial_grad, **kw)
         # a capacity overflow dropped nodes or edges: the caller must see it
         ld["overflow"] = g.any_overflow().to(torch.float32)
         lap("forward")
@@ -104,13 +128,16 @@ class VAESolver:
         SDF grid [B, R, R, R] (R = ``resolution`` or
         ``solver.resolution``) -> one mesh per path of ``save_paths``, if
         given.  Returns (sdfs, the decoder's dict with "seconds", the wall
-        seconds of graph / encode / decode / sdf / mesh)."""
+        seconds of graph / encode / decode / sdf / mesh); the colour VAE's
+        dict holds the decoded per-node "colors", and its encoder reads the
+        batch's ``point_colors``."""
         m = self.cfg.model
         s = self.cfg.solver
         self.vae.eval()
         lap = Laps(self.device)
         octree, g = batch_to_graph(batch["points"], batch["normals"],
-                                   self.spec1, self.edge_factor)
+                                   self.spec1, self.edge_factor,
+                                   features=self._features(batch))
         lap("graph")
         mean, _ = self.vae.encode(g)
         lap("encode")

@@ -1,5 +1,4 @@
-"""The graph VAE's geometry losses (port of ``octfusion_tpu/nn/losses.py``,
-colour excepted).
+"""The graph VAE's geometry losses (port of ``octfusion_tpu/nn/losses.py``).
 
 The SDF-gradient terms supervise the MPU's spatial gradient inside the
 training loss.  ``geometry_loss`` takes it in closed form from
@@ -7,7 +6,8 @@ training loss.  ``geometry_loss`` takes it in closed form from
 pass per target depth, the corner lookups shared) or from three
 forward-mode passes through ``torch.func.jvp`` (``"jvp"``, as the JAX
 package's ``mpu_with_grad``), which is the analytic form's oracle.
-Neither differentiates twice in reverse mode.
+Neither differentiates twice in reverse mode.  ``geometry_color_loss``
+adds the colour VAE's per-depth colour regression.
 """
 
 from __future__ import annotations
@@ -142,4 +142,40 @@ def geometry_loss(
         output.update(reg_fn(sdf, grad, sdf_gt, grad_gt, f"_{d}"))
     output["kl_loss"] = kl_weight * vae_out["kl_loss"]
     output["loss"] = sum(v for k, v in output.items() if "loss" in k)
+    return output
+
+
+def geometry_color_loss(
+    vae_out: Dict,
+    pos: torch.Tensor,
+    pt_batch: torch.Tensor,
+    sdf_gt: torch.Tensor,
+    grad_gt: torch.Tensor,
+    color_pos: torch.Tensor,
+    color_batch: torch.Tensor,
+    color_gt: torch.Tensor,
+    full_depth: int,
+    depth_stop: int,
+    depth_out: int,
+    kl_weight: float = 0.1,
+    loss_type: str = "sdf_reg_loss",
+) -> Dict[str, torch.Tensor]:
+    """:func:`geometry_loss` plus, at each depth d of depth_stop..depth_out,
+    "color_loss_{d}": 200 · mse of the predicted per-node colours
+    (``vae_out["colors"][d]``) blended by ``mpu_interp`` at the surface
+    points ``color_pos`` [K, 3] of samples ``color_batch`` [K] against
+    their colours ``color_gt`` [K, 3].  "loss" sums every term."""
+    output = geometry_loss(vae_out, pos, pt_batch, sdf_gt, grad_gt,
+                           full_depth, depth_stop, depth_out,
+                           kl_weight=kl_weight, loss_type=loss_type)
+    octree_out = vae_out["octree_out"]
+    total = output.pop("loss")
+    for d in range(depth_stop, depth_out + 1):
+        pred = mpu_ops.mpu_interp(color_pos, color_batch,
+                                  vae_out["colors"][d], octree_out,
+                                  full_depth, d)
+        closs = 200.0 * torch.mean((pred - color_gt) ** 2)
+        output[f"color_loss_{d}"] = closs
+        total = total + closs
+    output["loss"] = total
     return output

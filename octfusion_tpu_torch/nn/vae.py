@@ -8,9 +8,11 @@ vertex.  The decoder predicts per-level split logits and MPU plane
 parameters: ``decode`` on a fixed topology (training, the input's own
 graph), ``decode_grow`` splitting and growing the octree level by level
 and extending the dual graph as it goes (inference).  ``forward``
-autoencodes with the KL term.  The colour heads are not ported.  Module
-names follow the reference's keys, so a whole reference state dict loads
-with ``strict=True``.
+autoencodes with the KL term.  With ``color_channel`` > 0 (the colour
+VAE) each decoder level also predicts per-node colours through the heads
+``color.{i}``, beside ``predict.{i}`` / ``regress.{i}``, and the decoders
+return them as "colors".  Module names follow the reference's keys, so a
+whole reference state dict loads with ``strict=True``.
 """
 
 from __future__ import annotations
@@ -77,6 +79,7 @@ class GraphVAE(nn.Module):
         resblk_num: int = 2,
         channels: Tuple[int, ...] = DEFAULT_CHANNELS,
         use_checkpoint: bool = True,
+        color_channel: int = 0,
     ):
         super().__init__()
         del full_depth  # the dual graph carries it
@@ -112,6 +115,10 @@ class GraphVAE(nn.Module):
             for d in range(ds + 1, depth_out + 1))
         self.predict = nn.ModuleList(PredictHead(ch[d], 2) for d in levels)
         self.regress = nn.ModuleList(PredictHead(ch[d], 4) for d in levels)
+        self.color_channel = color_channel
+        if color_channel > 0:
+            self.color = nn.ModuleList(PredictHead(ch[d], color_channel)
+                                       for d in levels)
 
     def encode(self, g: DualGraph):
         """-> (mean, logvar) [G_cap(depth_stop), embed_dim] on the
@@ -151,20 +158,34 @@ class GraphVAE(nn.Module):
         logit = self.predict[i](x, g.level(d))
         return x, graph_ops._cur_segment(logit, g, d)
 
+    def _level_heads(self, i: int, d: int, x, g: DualGraph, reg_voxs,
+                     colors) -> None:
+        """Level ``d``'s planes (and colours) as per-depth node arrays."""
+        reg_voxs[d] = graph_ops.graph_to_level_arrays(
+            self.regress[i](x, g.level(d)), g, d)
+        if self.color_channel > 0:
+            colors[d] = graph_ops.graph_to_level_arrays(
+                self.color[i](x, g.level(d)), g, d)
+
+    def _decoded(self, logits, reg_voxs, colors, octree, g) -> Dict:
+        out = {"logits": logits, "reg_voxs": reg_voxs, "octree_out": octree,
+               "graph_out": g}
+        if self.color_channel > 0:
+            out["colors"] = colors
+        return out
+
     def decode(self, code: torch.Tensor, g: DualGraph) -> Dict:
         """Fixed-topology decode (training): ``g`` holds every level up to
         ``depth_out`` of the octree the planes are predicted on."""
         ds = self.depth_stop
         x = self._decode_start(code, g)
-        logits, reg_voxs = {}, {}
+        logits, reg_voxs, colors = {}, {}, {}
         for i, d in enumerate(range(ds, self.depth_out + 1)):
             if d > ds:
                 x = self.upsample[i - 1](x, g, d)
             x, logits[d] = self._decode_level(i, d, x, g)
-            reg = self.regress[i](x, g.level(d))
-            reg_voxs[d] = graph_ops.graph_to_level_arrays(reg, g, d)
-        return {"logits": logits, "reg_voxs": reg_voxs,
-                "octree_out": g.octree, "graph_out": g}
+            self._level_heads(i, d, x, g, reg_voxs, colors)
+        return self._decoded(logits, reg_voxs, colors, g.octree, g)
 
     def decode_grow(self, code: torch.Tensor, g: DualGraph) -> Dict:
         """Growing decode (inference): split each level from its predicted
@@ -173,7 +194,7 @@ class GraphVAE(nn.Module):
         ds = self.depth_stop
         octree = g.octree
         x = self._decode_start(code, g)
-        logits, reg_voxs = {}, {}
+        logits, reg_voxs, colors = {}, {}, {}
         for i, d in enumerate(range(ds, self.depth_out + 1)):
             if d > ds:
                 x = self.upsample[i - 1](x, g, d)
@@ -182,10 +203,8 @@ class GraphVAE(nn.Module):
                 label = torch.argmax(logits[d], dim=-1)
                 octree = octree.octree_split(label, d).octree_grow(d + 1)
                 g = extend_dual_graph(g.replace(octree=octree), octree)
-            reg = self.regress[i](x, g.level(d))
-            reg_voxs[d] = graph_ops.graph_to_level_arrays(reg, g, d)
-        return {"logits": logits, "reg_voxs": reg_voxs,
-                "octree_out": octree, "graph_out": g}
+            self._level_heads(i, d, x, g, reg_voxs, colors)
+        return self._decoded(logits, reg_voxs, colors, octree, g)
 
     def forward(self, g_in: DualGraph, g_out: Optional[DualGraph] = None,
                 eps: Optional[torch.Tensor] = None,

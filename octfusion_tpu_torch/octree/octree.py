@@ -343,12 +343,15 @@ def _scatter_add(cap: int, idx: torch.Tensor, val: torch.Tensor):
 
 
 def build_octree(points: torch.Tensor, normals: torch.Tensor,
-                 spec: OctreeSpec) -> Octree:
+                 spec: OctreeSpec,
+                 features: Optional[torch.Tensor] = None) -> Octree:
     """A single-sample octree from points in [-1, 1]^3 with unit normals.
 
     The finest-level signal is the ND input feature: the per-node averaged
     unit normal (3 channels) plus the mean displacement of the node's
-    points along it, from the node centre in node units (1 channel).  Runs
+    points along it, from the node centre in node units (1 channel).
+    Optional per-point ``features`` [N, F] (e.g. colours) are averaged per
+    node and appended after those 4 channels.  Runs
     on the points' device without waiting for the host; a level that needs
     more than its cap keeps the first ``cap`` nodes and flags
     ``overflow``."""
@@ -387,6 +390,10 @@ def build_octree(points: torch.Tensor, normals: torch.Tensor,
     favg = _scatter_add(cap_f, rank, sfrac) / cnt
     disp = (navg * (favg - 0.5)).sum(-1, keepdim=True)
     occ_signal = torch.cat([navg, disp], -1)
+    if features is not None:
+        fmean = _scatter_add(cap_f, rank,
+                             features.to(torch.float32)[order]) / cnt
+        occ_signal = torch.cat([occ_signal, fmean], -1)
 
     keys, batch, child, nnum, nnum_nempty, overflow = [], [], [], [], [], []
     signal = None

@@ -1,5 +1,5 @@
 """The neural multi-level partition-of-unity SDF (port of
-``octfusion_tpu/ops/mpu.py``, colour interpolation excepted).
+``octfusion_tpu/ops/mpu.py``).
 
 Each octree node at depths ``full_depth..d`` carries a plane ``(n, b)``; a
 query's SDF is the trilinear-weighted blend of ``n·Δx + b`` over its 8
@@ -12,7 +12,8 @@ corner nodes per depth, normalised by the blended weights.
   target depth with the corner lookups shared.  Every query keeps its
   static 8 corner slots per depth with masks.  The absolute value in the
   trilinear basis (``abs_one``) has derivative sign(x) with sign(0) = +1,
-  as the reference's custom gradient.
+  as the reference's custom gradient.  ``mpu_interp`` blends per-node
+  constant values (the colour VAE's colours) with the same weights.
 * A regular grid (inference): the corner weights are trilinear
   interpolation weights, so the blend becomes six dense per-node channels
   per depth resampled by three axis-separable lerps (see the JAX module
@@ -196,6 +197,29 @@ def neural_mpu(pos: torch.Tensor, pt_batch: torch.Tensor,
     return {d: mpu_eval(pos, pt_batch, reg_voxs[d], octree, full_depth, d,
                         corner_cache=cache)
             for d in range(depth_stop, depth_end + 1)}
+
+
+def mpu_interp(pos: torch.Tensor, pt_batch: torch.Tensor,
+               val_levels: Dict[int, torch.Tensor], octree: Octree,
+               full_depth: int, depth_end: int) -> torch.Tensor:
+    """Partition-of-unity blend of per-node *constant* values (e.g.
+    predicted colours): ``mpu_eval``'s blend with the node's value in
+    place of its plane.  ``val_levels[dd]``: [node_caps[dd], C] -> [N, C].
+    Corners at depths below ``depth_end`` count only on octree leaves."""
+    n = pos.shape[0]
+    c = val_levels[depth_end].shape[1]
+    num = pos.new_zeros(n, c)
+    den = pos.new_zeros(n)
+    for dd in range(full_depth, depth_end + 1):
+        idx, _, w, valid = octree_corner_info(octree, dd, pos, pt_batch)
+        idx_c = idx.clamp(0, octree.spec.node_caps[dd] - 1)
+        use = valid if dd == depth_end else (
+            valid & (octree.child[dd][idx_c] < 0))
+        vals = val_levels[dd][idx_c.reshape(-1)].reshape(n, 8, c)
+        wm = torch.where(use, w, torch.zeros_like(w))
+        num = num + torch.sum(wm[..., None] * vals, dim=1)
+        den = den + torch.sum(wm, dim=-1)
+    return num / (den[:, None] + 1e-8)
 
 
 def _axis_taps(xf: torch.Tensor, s: int):

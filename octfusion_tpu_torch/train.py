@@ -1,5 +1,6 @@
 """Training / generation entry point of the port: the counterpart of the
-JAX package's ``train.py`` on one device.
+JAX package's ``train.py``, on one card or, under ``torchrun``, one
+process per card.
 
     python -m octfusion_tpu_torch.train --model vae --mode train \\
         --config configs/octfusion_snet_uncond.yaml --name vae
@@ -69,6 +70,25 @@ adds its ``split_large`` ([G_cap, 8] on the depth-``input_depth[1]``
 graph's layout); ``--model vae`` reconstructs dataset item i into
 ``results_<category>/<i>.obj``.
 
+Several cards (data parallelism, ``parallel/``):
+
+    torchrun --nproc_per_node N -m octfusion_tpu_torch.train --model vae \\
+        --config ... --name vae
+
+Each process joins the group (NCCL; gloo where the host runs more ranks
+than it has cards, which then share them) and takes
+``cuda:$LOCAL_RANK``.  The ranks form the
+config's ``mesh`` (``data_axis`` x ``model_axis``; -1 = every rank the
+model axis leaves); the global batch ``data.batch_size`` is rounded down
+to a multiple of the data axis (at least one row per data index), the
+loader of data index d yields the rows of its stripe (model-axis peers
+the same rows; the VAE splits their SDF queries over the model axis), and
+each step averages the gradients and losses over all ranks
+(``parallel/train_step``).  Rank 0 alone prints, writes the visualiser,
+the display meshes and the checkpoints; every rank resumes from the same
+file.  ``--mode generate`` stripes the shapes over a mesh of W data
+indices (``parallel.train_step.stripe``): rank r makes r, r + W, ...
+
 Runs on the card unless ``--device cpu``; without a card the default
 raises.  Computes in fp32 with TF32 off, as the reference.
 """
@@ -97,6 +117,9 @@ from .models.union_solver import UnionSolver
 from .models.vae_solver import VAESolver, VAETrainStep
 from .nn.modules import GraphConv
 from .ops import graph_conv_cuda
+from .parallel import dist as pdist
+from .parallel import train_step as pts
+from .parallel.mesh import make_mesh
 from .utils import ckpt as ckpt_lib
 from .utils import params as params_lib
 from .utils import sdf as sdf_utils
@@ -283,8 +306,9 @@ def _stop_profiler(prof, profile_dir) -> None:
     print(f"[*] profile written to {path}", flush=True)
 
 
-def loop_summary(stats: Dict, what: str, dev) -> str:
-    """The run's final line."""
+def loop_summary(stats: Dict, what: str, dev, sync=None) -> str:
+    """The run's final line; ``sync``, a data-parallel step's
+    ``GradSync``, adds the gradient all-reduce's bytes and median ms."""
     walls, waits = stats["step_s"], stats["data_s"]
     later = slice(1, None) if len(walls) > 1 else slice(None)
     timing = (f"ms_per_step={statistics.median(walls[later]) * 1e3:.3f} "
@@ -299,6 +323,9 @@ def loop_summary(stats: Dict, what: str, dev) -> str:
                       for k, n in graph_conv_cuda.launches.items())
             + f" graph_conv_calls={GraphConv.calls} graph_conv_backward_calls="
             f"{graph_conv_cuda.GraphConvFunction.backward_calls} "
+            + (f"world={pdist.world_size()} allreduce_bytes={sync.bytes} "
+               f"allreduce_ms={statistics.median(sync.seconds) * 1e3:.3f} "
+               if sync is not None and sync.seconds else "")
             + peak_memory(dev))
 
 
@@ -342,10 +369,11 @@ def generate_mode(args, cfg, run_dir, dev):
     rdir = os.path.join(run_dir, f"results_{args.category}")
     os.makedirs(rdir, exist_ok=True)
     ext = "obj" if args.model == "vae" else "npz"
-    todo = [i for i in range(args.count)
+    mine = pts.stripe(range(args.count), make_mesh())
+    todo = [i for i in mine
             if not os.path.exists(os.path.join(rdir, f"{i}.{ext}"))]
-    if len(todo) < args.count:
-        print(f"[*] {args.count - len(todo)}/{args.count} results already "
+    if len(todo) < len(mine):
+        print(f"[*] {len(mine) - len(todo)}/{len(mine)} results already "
               "present; generating the rest")
     path = args.ckpt or ckpt_lib.latest_path(os.path.join(run_dir, "ckpt"))
     tree = ckpt_lib.restore(path) if path else None
@@ -392,50 +420,90 @@ def generate_mode(args, cfg, run_dir, dev):
     return written
 
 
+def striped_loader(dataset, cfg, mesh=None, say=print):
+    """The training loader: the whole batch in one process; under the
+    data-parallel ``mesh``, the global batch ``data.batch_size`` rounded
+    down to a multiple of the data axis (at least one row per data index)
+    and this rank's data index's stripe of the sampler, so that
+    model-axis peers load the same rows."""
+    batch_size, data_index, n_data = cfg.data.batch_size, 0, 1
+    if mesh is not None:
+        data_index, n_data = mesh.coords()[0], mesh.data
+        global_batch = max(n_data, batch_size // n_data * n_data)
+        if global_batch != batch_size:
+            say(f"[*] global batch {batch_size} -> {global_batch} (a "
+                f"multiple of the data axis, {n_data})")
+        batch_size = global_batch // n_data
+        say(f"[*] data parallel over {mesh.size} ranks: mesh data "
+            f"{mesh.data} x model {mesh.model}, {batch_size} rows per data "
+            "index")
+    return loader_lib.DataLoader(dataset, batch_size, cfg.data.shuffle,
+                                 cfg.train.seed, cfg.data.num_workers,
+                                 rank=data_index, world_size=n_data)
+
+
+def shard_rows(batches, mesh, vae: bool):
+    """A rank-striped loader's batches with the VAE's SDF queries split
+    over the model axis (``parallel.train_step.shard_batch``); closing it
+    closes ``batches``."""
+    try:
+        for b in batches:
+            yield pts.shard_batch(b, mesh, vae, rows_local=True)
+    finally:
+        batches.close()
+
+
 def train_mode(args, cfg, run_dir, dev) -> Dict:
     m = cfg.model
     ckpt_dir = os.path.join(run_dir, "ckpt")
-    vis = Visualizer(run_dir)
+    main_rank = pdist.is_main()
+    say = print if main_rank else (lambda *a, **k: None)
+    vis = Visualizer(run_dir, enabled=main_rank)
     # reject samples that would overflow the static octree and graph
     # capacities before they poison a step
     dataset = CapacityFilteredDataset(
         get_dataset(cfg.data), cfg.capacity.octree_spec(m.depth, m.full_depth),
         edge_factor=cfg.capacity.edge_factor)
-    dl = loader_lib.DataLoader(dataset, cfg.data.batch_size, cfg.data.shuffle,
-                               cfg.train.seed, cfg.data.num_workers)
+    mesh = (make_mesh(cfg.mesh.data_axis, cfg.mesh.model_axis)
+            if pdist.world_size() > 1 else None)
+    dl = striped_loader(dataset, cfg, mesh, say)
     total_steps = args.max_steps or len(dl) * cfg.train.epochs
 
     torch.manual_seed(args.seed)
     if args.model == "vae":
         solver = VAESolver(cfg, device=dev)
-        step = solver.make_train_step(total_steps)
+        step = (pts.make_vae_dp_train_step(solver, mesh, total_steps,
+                                           args.seed) if mesh is not None
+                else solver.make_train_step(total_steps))
         what = "vae"
     else:
         solver = _solver_class(args)(cfg, stage_flag=args.stage, device=dev)
-        step = solver.make_train_step()
+        step = (pts.make_union_dp_train_step(solver, mesh, args.seed)
+                if mesh is not None else solver.make_train_step())
         what = f"{args.model} {args.stage}"
         if args.vq_ckpt:
             params_lib.load_vae_checkpoint(solver.vae, args.vq_ckpt)
-            print(f"[*] loaded VAE weights from {args.vq_ckpt}")
+            say(f"[*] loaded VAE weights from {args.vq_ckpt}")
         elif _makes_mesh(args):
             # the stages that encode (training) or decode (display) shapes
-            print("[warn] no --vq_ckpt given; using random VAE weights")
+            say("[warn] no --vq_ckpt given; using random VAE weights")
         if args.pretrain_ckpt:
             for kind in params_lib.graft_union_checkpoint(
                     solver.df, step.ema, ckpt_lib.restore(args.pretrain_ckpt),
                     GRAFTS.get(args.stage, ())):
-                print(f"[*] grafted unet_{kind} from {args.pretrain_ckpt}")
+                say(f"[*] grafted unet_{kind} from {args.pretrain_ckpt}")
 
+    pdist.barrier()     # every rank resumes from the same file
     resume = args.ckpt or ckpt_lib.latest_path(ckpt_dir)
     if resume:
         restore_training(step, ckpt_lib.restore(resume))
-        print(f"[*] resumed from {resume} at step {step.step}")
+        say(f"[*] resumed from {resume} at step {step.step}")
         if args.pretrain_ckpt and args.model != "vae" and args.stage != "lr":
             # the resumed state holds this run's own (frozen) earlier
             # U-Nets: an extended earlier run does not reach a resumed one
-            print("[!] NOTE: --pretrain_ckpt graft is superseded by the "
-                  "resumed checkpoint's own (frozen) subtrees; start a "
-                  "fresh run dir to re-graft an updated pretrain stage")
+            say("[!] NOTE: --pretrain_ckpt graft is superseded by the "
+                "resumed checkpoint's own (frozen) subtrees; start a "
+                "fresh run dir to re-graft an updated pretrain stage")
 
     ddir = os.path.join(run_dir, "train_temp")
     res = min(cfg.solver.resolution, 128)
@@ -464,9 +532,10 @@ def train_mode(args, cfg, run_dir, dev) -> Dict:
             traceback.print_exc()
 
     def save(n):
-        ckpt_lib.save(ckpt_dir, training_checkpoint(step), n,
-                      cfg.train.ckpt_num)
-        print(f"[*] saved checkpoint at step {n}")
+        if main_rank:
+            ckpt_lib.save(ckpt_dir, training_checkpoint(step), n,
+                          cfg.train.ckpt_num)
+            print(f"[*] saved checkpoint at step {n}")
 
     graph_conv_cuda.reset_launches()
     GraphConv.calls = 0
@@ -475,21 +544,30 @@ def train_mode(args, cfg, run_dir, dev) -> Dict:
         torch.cuda.reset_peak_memory_stats(dev)
     t = cfg.train
     batches = iter(dl)
+    if mesh is not None:
+        batches = shard_rows(batches, mesh, args.model == "vae")
+    # a data-parallel step draws from its rank's generator
+    gen = getattr(step, "generator", None)
+    if gen is None:
+        gen = torch.Generator(device=dev).manual_seed(args.seed)
     try:
         stats = train_loop(
-            step, batches, total_steps, start=step.step,
-            generator=torch.Generator(device=dev).manual_seed(args.seed),
+            step, batches, total_steps, start=step.step, generator=gen,
             device=dev, print_freq=t.print_freq, vis=vis,
             save_freq=t.save_latest_freq, save=save,
             # the lr stage (and the 3-stage hr stage) makes no mesh
-            display_freq=t.display_freq if _makes_mesh(args) else 0,
+            display_freq=(t.display_freq if _makes_mesh(args) and main_rank
+                          else 0),
             display=display,
-            profile=args.profile, profile_dir=os.path.join(run_dir, "profile"))
+            profile=args.profile if main_rank else 0,
+            profile_dir=os.path.join(run_dir, "profile"))
     finally:
         batches.close()
         vis.close()
     save(total_steps)
-    print(loop_summary(stats, what, dev), flush=True)
+    pdist.barrier()     # the last checkpoint exists before any rank ends
+    say(loop_summary(stats, what, dev, getattr(step, "sync", None)),
+        flush=True)
     return stats
 
 
@@ -498,15 +576,27 @@ def main(argv=None):
     if args.model == "union" and args.stage == "feature":
         raise SystemExit("--stage feature is the 3-stage model's: use "
                          "--model union_3t")
-    dev = resolve_device(args.device)
-    use_fp32_math()
-    cfg = configure(args)
-    run_dir = os.path.join(cfg.train.logs_dir, cfg.train.name)
-    os.makedirs(run_dir, exist_ok=True)
-    config_lib.dump_config(cfg, os.path.join(run_dir, "config.yaml"))
-    if args.mode == "generate":
-        return generate_mode(args, cfg, run_dir, dev)
-    return train_mode(args, cfg, run_dir, dev)
+    # under torchrun: join the process group before anything else
+    joined = pdist.maybe_initialize(args.device)
+    try:
+        dev = resolve_device(pdist.local_device(args.device))
+        if dev.type == "cuda" and dev.index is not None:
+            torch.cuda.set_device(dev)
+        use_fp32_math()
+        if joined:
+            pdist.announce(dev)
+        cfg = configure(args)
+        run_dir = os.path.join(cfg.train.logs_dir, cfg.train.name)
+        if pdist.is_main():
+            os.makedirs(run_dir, exist_ok=True)
+            config_lib.dump_config(cfg, os.path.join(run_dir, "config.yaml"))
+        pdist.barrier()
+        if args.mode == "generate":
+            return generate_mode(args, cfg, run_dir, dev)
+        return train_mode(args, cfg, run_dir, dev)
+    finally:
+        if joined:
+            pdist.shutdown()
 
 
 if __name__ == "__main__":

@@ -138,7 +138,10 @@ def vae_state_dict(params: Dict, depth: int = 8, depth_stop: int = 6,
                    depth_out: int = 8, resblk_num: int = 2
                    ) -> Dict[str, torch.Tensor]:
     """flax ``GraphVAE`` params -> the port's ``GraphVAE`` state dict,
-    encoder and decoder."""
+    encoder and decoder.  A colour VAE's heads (flax ``color_{i}``) map to
+    ``color.{i}``.  Those key names are this port's choice: the repo holds
+    no reference checkpoint of a colour VAE, so no reference key exists
+    to check them against."""
     b = _Bridge(params)
     b.graph_conv("conv1", ("conv1",))
     for i in range(depth - depth_stop + 1):
@@ -160,6 +163,8 @@ def vae_state_dict(params: Dict, depth: int = 8, depth_stop: int = 6,
         b.graph_resblocks(f"decoder.{i}", (f"decoder_{i}",), resblk_num)
         b.predict_head(f"predict.{i}", (f"predict_{i}",))
         b.predict_head(f"regress.{i}", (f"regress_{i}",))
+        if b.has((f"color_{i}",)):
+            b.predict_head(f"color.{i}", (f"color_{i}",))
     for i in range(depth_out - depth_stop):
         b.up_mix(f"upsample.{i}.upsample", (f"upsample_{i}", "upsample"))
         if b.has((f"upsample_{i}", "conv1x1")):

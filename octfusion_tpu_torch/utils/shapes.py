@@ -83,14 +83,24 @@ def lumpy_sphere_sdf_samples(batch_size: int, n: int, seed: int = 0,
             "grad": grad.to(device)}
 
 
+def position_colors(points: torch.Tensor) -> torch.Tensor:
+    """Per-point RGB in [0, 1], a smooth function of position: the colour
+    VAE's supervision for shapes that have none, which it can learn."""
+    return 0.5 + 0.5 * torch.sin(4.0 * points)
+
+
 def lumpy_sphere_batch(batch_size: int, n_points: int, n_sdf: int,
-                       seed: int = 0, device="cpu"):
+                       seed: int = 0, device="cpu", colors: bool = False):
     """A VAE training batch without a dataset: ``points`` / ``normals``
     of :func:`lumpy_spheres` and ``n_sdf`` SDF samples of the same shapes
-    (:func:`lumpy_sphere_sdf_samples`)."""
+    (:func:`lumpy_sphere_sdf_samples`); with ``colors``, the colour VAE's
+    ``point_colors`` (:func:`position_colors`)."""
     pts, nrm = lumpy_spheres(batch_size, n_points, seed, device=device)
-    return {"points": pts, "normals": nrm, **lumpy_sphere_sdf_samples(
+    out = {"points": pts, "normals": nrm, **lumpy_sphere_sdf_samples(
         batch_size, n_sdf, seed, points_per_shape=n_points, device=device)}
+    if colors:
+        out["point_colors"] = position_colors(pts)
+    return out
 
 
 def lumpy_sphere_fields(batch_size: int, resolution: int, seed: int = 0,
@@ -115,13 +125,16 @@ def lumpy_sphere_fields(batch_size: int, resolution: int, seed: int = 0,
 
 
 def write_shapenet_set(root: str, n_shapes: int, n_points: int,
-                       point_scale: float, seed: int = 0):
+                       point_scale: float, seed: int = 0,
+                       colors: bool = False):
     """``n_shapes`` seeded lumpy spheres in the reference's per-shape
     ShapeNet layout under ``root`` (``pointcloud.npz``: ``n_points``
     surface points scaled by ``point_scale`` as the files are, with exact
     normals; ``sdf.npz``: as many SDF samples with exact gradients, the
-    value of the field in the loader's [-1, 1] frame) and a filelist ->
-    (location, filelist), for ``data.location`` / ``data.filelist``."""
+    value of the field in the loader's [-1, 1] frame; with ``colors``,
+    ``color.npz``: each surface point's :func:`position_colors`) and a
+    filelist -> (location, filelist), for ``data.location`` /
+    ``data.filelist``."""
     pts, nrm = lumpy_spheres(n_shapes, n_points, seed)
     sdf = lumpy_sphere_sdf_samples(n_shapes, n_points, seed,
                                    points_per_shape=n_points)
@@ -134,6 +147,9 @@ def write_shapenet_set(root: str, n_shapes: int, n_points: int,
         np.savez(os.path.join(d, "sdf.npz"),
                  points=sdf["pos"][i].numpy() * point_scale,
                  sdf=sdf["sdf"][i].numpy(), grad=sdf["grad"][i].numpy())
+        if colors:
+            np.savez(os.path.join(d, "color.npz"),
+                     colors=position_colors(pts[i]).numpy())
     filelist = os.path.join(root, "filelist.txt")
     with open(filelist, "w") as fh:
         fh.write("".join(f"{name}\n" for name in names))

@@ -7,8 +7,9 @@ differentiable graph conv on the card, the Chamfer kernel K4 with the
 evaluation's tile loop, and the solver's fp32 precision (the lr denoise
 step, card against CPU); K1 / K2 / K3 at the VAE's odd input widths on
 its depth-8 training graph; the VAE and lr train steps card against CPU
-on ``configs/synthetic_tiny.yaml``; and the training solvers' default
-device.  They skip without a GPU; on one, run them with
+on ``configs/synthetic_tiny.yaml``, and the colour VAE's; the
+training solvers' default device; data parallelism on the card (two gloo
+ranks sharing it, one NCCL rank) and the sharded pairwise loop.  They skip without a GPU; on one, run them with
 
     python -m pytest tests/test_torch_port_cuda.py --noconftest -m cuda -q
 
@@ -454,9 +455,11 @@ def vae_graph():
 
 
 # the VAE's graph convs: C = channels + node types, none a multiple of 4
+# (the colour VAE's conv1: 4 ND + 3 RGB + 7 node types = 14)
 @pytest.mark.cuda
 @pytest.mark.parametrize("d,c,cout", [(8, 11, 24), (8, 31, 24),
-                                      (7, 38, 32), (6, 37, 32)])
+                                      (7, 38, 32), (6, 37, 32),
+                                      (8, 14, 24)])
 def test_kernels_match_plain_at_vae_shapes(cuda, vae_graph, d, c, cout):
     """K1, K2 and K3 against their plain versions at the VAE's (level, C,
     C'), and at the same widths on the synthetic edge-case level (G =
@@ -570,3 +573,76 @@ def test_training_solvers_default_to_the_card(cuda):
     assert next(VAESolver(cfg).vae.parameters()).is_cuda
     lr = UnionSolver(cfg, stage_flag="lr")
     assert lr.device.type == "cuda" and next(lr.df.parameters()).is_cuda
+
+
+@pytest.mark.cuda
+def test_color_vae_train_step_card_matches_cpu(cuda):
+    import dataclasses
+
+    cfg = _tiny_config()
+    cfg = dataclasses.replace(
+        cfg, model=dataclasses.replace(cfg.model, channel_in=7),
+        loss=dataclasses.replace(cfg.loss, name="color"))
+    cpu = VAESolver(cfg, device="cpu")
+    _perturbed(cpu.vae, 7)
+    card = VAESolver(cfg)
+    card.vae.load_state_dict(cpu.vae.state_dict())
+    batch = lumpy_sphere_batch(2, 2048, 256, seed=8, colors=True)
+    eps = torch.randn(cpu.code_shape(2),
+                      generator=torch.Generator().manual_seed(9))
+    _step_card_vs_cpu(
+        (card, cpu), lambda s: s.vae,
+        lambda s: s.loss_fn({k: v.to(s.device) for k, v in batch.items()},
+                            eps=eps.to(s.device)))
+
+
+@pytest.mark.cuda
+def test_sharded_pairwise_on_the_card_is_bit_identical(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(10)
+    a = torch.rand(13, 512, 3, device=cuda, generator=gen) - 0.5
+    b = torch.rand(9, 512, 3, device=cuda, generator=gen) - 0.5
+    cd1, em1 = distances.pairwise_cd_emd(a, b, batch=4, row_block=2)
+    cd2, em2 = distances.pairwise_cd_emd(a, b, batch=4, row_block=2,
+                                         shard_devices=["cuda:0", "cuda:0"])
+    assert np.array_equal(cd1, cd2) and np.array_equal(em1, em2)
+
+
+def _dp_rank_on_card(rank):
+    """A tiny VAE DP step on two gloo ranks sharing cuda:0 -> (the
+    averaged loss, bit digests of the updated parameters)."""
+    from octfusion_tpu_torch.parallel import dist as pdist
+    from octfusion_tpu_torch.parallel import train_step as pts
+    from octfusion_tpu_torch.parallel.mesh import make_mesh
+
+    dev = pdist.local_device("cuda")
+    solver = VAESolver(_tiny_config(), device=dev)
+    mesh = make_mesh()
+    step = pts.make_vae_dp_train_step(solver, mesh, 10)
+    batch = lumpy_sphere_batch(2, 2048, 256, seed=11, device=dev)
+    out = step(pts.shard_batch(batch, mesh, vae=True))
+    digest = [int(p.detach().view(torch.int32).long().sum())
+              for p in solver.vae.parameters()]
+    return float(out["loss"]), digest, str(dev)
+
+
+def _nccl_rank(rank):
+    import torch.distributed as tdist
+
+    t = torch.full((3,), 2.0, device="cuda")
+    tdist.all_reduce(t)
+    return tdist.get_backend(), t.tolist()
+
+
+@pytest.mark.cuda
+def test_data_parallel_on_the_card(cuda):
+    """Two gloo ranks on the one card take a VAE DP step and end with the
+    same parameters; one NCCL rank (the default backend on a card)
+    reduces a CUDA tensor."""
+    from octfusion_tpu_torch.parallel import launch
+
+    r0, r1 = launch.spawn(_dp_rank_on_card, 2, backend="gloo",
+                          device="cuda", timeout=300)
+    assert r0 == r1 and np.isfinite(r0[0]) and r0[2] == "cuda:0"
+    (backend, vals), = launch.spawn(_nccl_rank, 1, backend=None,
+                                    device="cuda", timeout=300)
+    assert backend == "nccl" and vals == [2.0, 2.0, 2.0]
