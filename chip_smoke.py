@@ -5,7 +5,9 @@ at the full width of the reference-parity model with seeded random
 weights, the evaluation metrics from meshes at the reference's
 2048-point protocol, the DPM-Solver++ generation path with its CLI,
 the training CLI on a ShapeNet-format set, and the 3-stage model at the
-Objaverse widths, decoded to depth 10), and checks the hand-written
+Objaverse widths, decoded to depth 10; data parallelism on the one
+card; shading FID with the stand-in features, dataset preparation from
+meshes and the depth-9 generation), and checks the hand-written
 CUDA kernels they run (the graph conv's K1 forward, K2 column buffer, K3
 input gradient and K5 packed forward; the Chamfer kernel K4):
 
@@ -232,14 +234,52 @@ input gradient and K5 packed forward; the Chamfer kernel K4):
    (or, if not, the same faces with vertices within K1's atol, said so);
    (e) ``pairwise_cd_emd`` with ``shard_devices=["cuda:0", "cuda:0"]``
    equal to the unsharded matrices bit for bit.  Every spawned process
-   has a timeout and a failing rank fails the phase.
+   has a timeout and a failing rank fails the phase;
+23. shading FID: ``python -m octfusion_tpu_torch.evaluate --fid_standin
+   --skip_pairwise`` (the triangle rasteriser in float64 and the stand-in
+   features on the card) over 16 + 16 meshes made as phase 10 makes its
+   32 + 32, at 299², 20 views, twice: a finite, positive
+   ``shading_fid_standin``, and the second run, which reads each set's
+   ``.fid_cache`` (32 feature files),
+   gives the same value.  Then on 2 meshes x 20 views the card's images
+   against the port's CPU path (>= 99.9% of the pixels within 1e-6, the
+   pixels beyond counted) and the stand-in features of the same images
+   (rtol 1e-4, atol 1e-5); prints render and feature s/mesh, the FID
+   wall of both runs and the peak memory;
+24. dataset preparation: 4 lumpy spheres marched on the card at 128³
+   (their face counts printed), then ``python -m
+   octfusion_tpu_torch.tools.prepare_dataset`` on the card at its
+   defaults (100000 surface samples and 100000 queries a mesh): per mesh
+   the seconds of the nearest-sample search, the winding numbers and in
+   all, and finite shards of the right shapes.  On the first mesh at 4096
+   queries, the card against the CPU: distances within 1e-6, another
+   nearest index only at a tie (squared distances within 1e-12), winding
+   numbers within 1e-4, the same sign and SDF (1e-6) wherever |w - 1/2|
+   > 1e-3.  Then ``PREP_VAE_STEPS`` (3) VAE steps of the train CLI on the
+   prepared set, as phase 19 trains (finite losses, launches = calls;
+   an overflow stops the run), with ``data.point_scale`` 1.0: the shards
+   span [-0.4, 0.4]³ as phase 19's shapes do (read at the reference's
+   0.5, a sphere of that size overflows the snet caps at depth 7);
+25. depth 9: first a 2-step warm-up of ``configs/synthetic_depth9.yaml``
+   in process notes every (level, C, C') it convolves; K1 vs plain on
+   the warm-up's decoded graph at each (levels 4-9, the 64-channel hr
+   U-Net and the VAE decode up to the 131072 cap) and K5 vs plain on its
+   sampling graph at levels 4-6, as phases 3 and 11 check.  Then the
+   config through ``python -m octfusion_tpu_torch.generate`` (dpmpp-25, 2 shapes, K5 on the grown
+   graph) from seeded perturbed weights saved as phase 13 saves them, at
+   ``solver.resolution`` 64 (noise meshes, as phase 13): exit 0, per shape
+   the node counts d4-d9, the per-depth and graph overflow flags (random
+   weights overflow the grown depths, and a flag must come with the
+   CLI's warning: no shape is truncated silently), a finite SDF and a
+   mesh with faces; prints s/shape, the faces and the peak memory.
 
 Prints the kernel summary as a JSON line (each kernel's ``launches`` is
-its count over the counted runs of phases 5, 8, 12, 17, 18, 19, 20, 21
-and 22, K4's over phases 10, 19 and 22; ``ms``, ``plain_ms``,
-``bound_ms`` and ``library_ms`` sum the shapes of phases 3, 6, 15, 20
-and 21, 9, or 11 and 20, K1's and K3's ``gemm_ms`` the GEMM-alone yardstick over the same
-shapes, and K5's ``k1_ms`` is K1 on phases 11's and 20's shapes;
+its count over the counted runs of phases 5, 8, 12, 17, 18, 19, 20, 21,
+22, 24 and 25, K4's over phases 10, 19 and 22; ``ms``, ``plain_ms``,
+``bound_ms`` and ``library_ms`` sum the shapes of phases 3, 6, 15, 20,
+21 and 25 (K1), 6, 15, 20 and 21 (K2, K3), 9 (K4), or 11, 20 and 25
+(K5), K1's and K3's ``gemm_ms`` the GEMM-alone yardstick over the same
+shapes, and K5's ``k1_ms`` is K1 on phases 11's, 20's and 25's shapes;
 ``bound_by`` is the larger of the summed operation and byte times; every
 bound is ``roofline.bound_times``: the operations at
 ``roofline.FLOPS_RATE``, the rate of the units the kernel runs on, and
@@ -331,6 +371,33 @@ DP_TIMEOUT = 900        # seconds for the two spawned ranks
 DP_TIMED_STEPS = 1      # DP steps timed after the checked one
 DP_CLI_STEPS = 3
 DP_EVAL_SETS = 12       # clouds per set of the sharded evaluation
+# phase 23
+FID_SHAPES = 16         # meshes a set (phase 10 makes 32), for the time
+FID_VIEWS = 20
+FID_IMAGE = 299         # the evaluation's default image side
+FID_CHECK_MESHES = 2    # card vs CPU
+TOL_IMAGE = 1e-6        # the same float64 operations on both
+IMAGE_SHARE = 0.999     # of the pixels within TOL_IMAGE
+TOL_FEATURES = dict(rtol=1e-4, atol=1e-5)   # fp32 convs, another order
+# phase 24
+PREP_MESHES = 4
+PREP_GRID = 128
+PREP_SURFACE = 100_000  # prepare_dataset's defaults
+PREP_QUERIES = 100_000
+PREP_CHECK_QUERIES = 4096
+TOL_PREP_SDF = 1e-6     # float64 distances (the sign from the winding)
+NEAR_TIE = 1e-12        # |d2| gap of two nearest samples held a tie
+TOL_WINDING = 1e-4      # float32 solid angles, another summation order
+WINDING_TIE = 1e-3      # |w - 1/2| within which the sign may flip
+PREP_VAE_STEPS = 3
+# the prepared shapes fill [-0.8, 0.8]^3 at the reference's point_scale
+# 0.5, and a sphere that size overflows the snet caps at depth 7; read at
+# 1.0 they span [-0.4, 0.4]^3, as phase 19's lumpy spheres do
+PREP_TRAIN_POINT_SCALE = 1.0
+# phase 25
+DEPTH9_CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "configs", "synthetic_depth9.yaml")
+DEPTH9_SHAPES = 2
 # phase 20
 TRAIN_STEPS_3T = 4      # per stage; the first 2 are warm-up
 CLI_3T_SHAPES = 4
@@ -1154,10 +1221,10 @@ def check_chamfer(seed) -> KernelStats:
     return stats
 
 
-def write_meshes(root, seed):
-    """Phase 10's meshes: ``EVAL_SHAPES`` lumpy spheres per set, marching
-    tetrahedra on the card over their fields on a ``EVAL_GRID``³ grid, one
-    seed per set -> the two globs."""
+def write_meshes(root, seed, n=EVAL_SHAPES):
+    """Phase 10's meshes (phase 23's with ``n``): ``n`` lumpy spheres per
+    set, marching tetrahedra on the card over their fields on a
+    ``EVAL_GRID``³ grid, one seed per set -> the two globs."""
     from octfusion_tpu_torch.utils import mesh as mesh_utils
     from octfusion_tpu_torch.utils.shapes import lumpy_sphere_fields
 
@@ -1165,7 +1232,7 @@ def write_meshes(root, seed):
     globs, faces_n = [], []
     for kind, s in (("samples", seed + 100), ("reference", seed + 200)):
         os.makedirs(os.path.join(root, kind))
-        fields = lumpy_sphere_fields(EVAL_SHAPES, EVAL_GRID, s, device=dev)
+        fields = lumpy_sphere_fields(n, EVAL_GRID, s, device=dev)
         for i, field in enumerate(fields):
             verts, faces = mesh_utils.marching_tetrahedra(field)
             faces_n.append(faces.shape[0])
@@ -1174,7 +1241,7 @@ def write_meshes(root, seed):
         globs.append(os.path.join(root, kind, "*.obj"))
     if min(faces_n) == 0:
         raise AssertionError("an empty evaluation mesh")
-    print(f"eval meshes: {EVAL_SHAPES}+{EVAL_SHAPES} lumpy spheres, "
+    print(f"eval meshes: {n}+{n} lumpy spheres, "
           f"{EVAL_GRID}^3 grid, faces {min(faces_n)}-{max(faces_n)}",
           flush=True)
     return globs
@@ -1416,24 +1483,34 @@ def check_dpmpp(solver, seed):
             l5["graph_conv_fwd"] + l1["graph_conv_fwd"])
 
 
-def check_cli(solver, cfg, seed):
-    """Phase 13: ``python -m octfusion_tpu_torch.generate`` from a
-    checkpoint of ``solver``'s weights, twice."""
+def save_for_generate(solver, cfg, root):
+    """Phases 13 and 25: ``solver``'s weights as the generate CLI reads
+    them (``utils/ckpt.save`` in the reference layout, the VAE under
+    ``autoencoder``) and ``cfg`` with ``solver.resolution``
+    ``CLI_RESOLUTION``, under ``root`` -> (diffusion checkpoint, VAE
+    checkpoint, config path)."""
     from octfusion_tpu_torch.config import dump_config
     from octfusion_tpu_torch.utils import ckpt, params
 
+    # untrained weights: the EMA a trainer would hold is the weights
+    ckpt_path = ckpt.save(os.path.join(root, "ckpt"),
+                          params.union_checkpoint(solver.df, ema=None),
+                          step=0)
+    vae_path = ckpt.save(
+        os.path.join(root, "vae"),
+        {"autoencoder": {n: v.cpu() for n, v in
+                         solver.vae.state_dict().items()}}, step=0)
+    cfg_path = os.path.join(root, "config.yaml")
+    dump_config(dataclasses.replace(cfg, solver=dataclasses.replace(
+        cfg.solver, resolution=CLI_RESOLUTION)), cfg_path)
+    return ckpt_path, vae_path, cfg_path
+
+
+def check_cli(solver, cfg, seed):
+    """Phase 13: ``python -m octfusion_tpu_torch.generate`` from a
+    checkpoint of ``solver``'s weights, twice."""
     with tempfile.TemporaryDirectory() as root:
-        # untrained weights: the EMA a trainer would hold is the weights
-        ckpt_path = ckpt.save(os.path.join(root, "ckpt"),
-                              params.union_checkpoint(solver.df, ema=None),
-                              step=0)
-        vae_path = ckpt.save(
-            os.path.join(root, "vae"),
-            {"autoencoder": {n: v.cpu() for n, v in
-                             solver.vae.state_dict().items()}}, step=0)
-        cfg_path = os.path.join(root, "config.yaml")
-        dump_config(dataclasses.replace(cfg, solver=dataclasses.replace(
-            cfg.solver, resolution=CLI_RESOLUTION)), cfg_path)
+        ckpt_path, vae_path, cfg_path = save_for_generate(solver, cfg, root)
         cmd = [sys.executable, "-m", "octfusion_tpu_torch.generate",
                "--config", cfg_path, "--logs_dir", root, "--name", "gen",
                "--ckpt", ckpt_path, "--vq_ckpt", vae_path,
@@ -1482,17 +1559,22 @@ def check_cli(solver, cfg, seed):
           "skipped all of them", flush=True)
 
 
-def cli_config(root, location, filelist, base=None) -> str:
-    """Phase 19's YAML (and phase 21's, 22's with ``base``):
-    ``configs/octfusion_snet_uncond.yaml`` with the changes its first
-    line lists."""
+def cli_config(root, location, filelist, base=None,
+               point_scale=None) -> str:
+    """Phase 19's YAML (and phase 21's, 22's with ``base``; phase 24's
+    with ``point_scale``): ``configs/octfusion_snet_uncond.yaml`` with
+    the changes its first lines list."""
     from octfusion_tpu_torch.config import dump_config, load_config
 
     base = base or TRAIN_CONFIG
     cfg = load_config(base)
+    data = dict(location=location, filelist=filelist)
+    note = ""
+    if point_scale is not None:
+        data["point_scale"] = point_scale
+        note = f", data.point_scale {point_scale}"
     cfg = dataclasses.replace(
-        cfg, data=dataclasses.replace(cfg.data, location=location,
-                                      filelist=filelist),
+        cfg, data=dataclasses.replace(cfg.data, **data),
         train=dataclasses.replace(cfg.train, print_freq=1,
                                   save_latest_freq=2, display_freq=3),
         solver=dataclasses.replace(cfg.solver,
@@ -1504,7 +1586,8 @@ def cli_config(root, location, filelist, base=None) -> str:
     with open(path, "w") as fh:
         fh.write(f"# {os.path.relpath(base, REPO)} with these changes: "
                  "data.location and data.filelist (a seeded lumpy-sphere\n"
-                 "# set), train.print_freq 1, train.save_latest_freq 2, "
+                 f"# set){note}, train.print_freq 1, "
+                 "train.save_latest_freq 2, "
                  f"train.display_freq 3, solver.resolution "
                  f"{CLI_TRAIN_RESOLUTION}\n# (barely trained weights decode "
                  "noise, whose 256^3 mesh is ~10^8 faces of text)\n" + body)
@@ -2547,6 +2630,296 @@ def check_data_parallel(seed):
     return launches
 
 
+# phase 23: shading FID
+
+def check_shading_fid(seed) -> None:
+    """Phase 23: ``python -m octfusion_tpu_torch.evaluate --fid_standin
+    --skip_pairwise`` on ``FID_SHAPES`` + ``FID_SHAPES`` meshes made as
+    phase 10 makes its own, at 299², twice (the second
+    reads each set's ``.fid_cache``), then the renderer and the stand-in
+    features card vs CPU on ``FID_CHECK_MESHES`` meshes."""
+    from octfusion_tpu_torch import evaluate
+    from octfusion_tpu_torch.metrics import fid, render
+    from octfusion_tpu_torch.utils import mesh as mesh_utils
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    with tempfile.TemporaryDirectory() as root:
+        samples, reference = write_meshes(root, seed, FID_SHAPES)
+        argv = ["--samples", samples, "--reference", reference,
+                "--fid_standin", "--skip_pairwise", "--fid_views",
+                str(FID_VIEWS)]
+        torch.cuda.reset_peak_memory_stats()
+        runs = []
+        for attempt in (1, 2):
+            t0 = time.perf_counter()
+            res = evaluate.main(argv)
+            runs.append((res, time.perf_counter() - t0))
+            print(f"fid run {attempt}: shading_fid_standin="
+                  f"{res['shading_fid_standin']!r} wall_s_fid="
+                  f"{res['wall_s_fid']:.3f} wall_s={runs[-1][1]:.3f}",
+                  flush=True)
+        peak = torch.cuda.max_memory_allocated()
+        cached = sum(len(os.listdir(os.path.join(root, kind, ".fid_cache")))
+                     for kind in ("samples", "reference"))
+        first, second = (r["shading_fid_standin"] for r, _ in runs)
+        if not math.isfinite(first) or first <= 0:
+            raise AssertionError(f"shading_fid_standin = {first}")
+        if second != first or cached != 2 * FID_SHAPES:
+            raise AssertionError(f"the cached rerun gave {second} against "
+                                 f"{first}; {cached} cached feature files")
+
+        paths = sorted(glob.glob(samples))[:FID_CHECK_MESHES]
+        feat = {d: fid.standin_feature_extractor(device=d)
+                for d in (dev, "cpu")}
+        t_render = t_feat = 0.0
+        for p in paths:
+            v, f = mesh_utils.load_obj(p)
+            t0 = time.perf_counter()
+            card = render.render_mesh_views_raster(v, f, device=dev)
+            t_render += time.perf_counter() - t0     # numpy out: synced
+            t0 = time.perf_counter()
+            f_card = feat[dev](card)
+            t_feat += time.perf_counter() - t0
+            cpu = render.render_mesh_views_raster(v, f, device="cpu")
+            err = np.abs(card - cpu)
+            apart = int((err > TOL_IMAGE).sum())
+            print(f"fid {os.path.basename(p)} card vs cpu: faces={len(f)} "
+                  f"pixels={err.size} beyond {TOL_IMAGE:g}: {apart} "
+                  f"({apart / err.size:.2e}) max_abs_err={err.max():.3e}",
+                  flush=True)
+            if apart > (1 - IMAGE_SHARE) * err.size:
+                raise AssertionError(f"{apart} pixels beyond {TOL_IMAGE}")
+            f_cpu = feat["cpu"](card)
+            print(f"fid features card vs cpu: max_abs_err="
+                  f"{np.abs(f_card - f_cpu).max():.3e} tol {TOL_FEATURES}",
+                  flush=True)
+            np.testing.assert_allclose(f_card, f_cpu, **TOL_FEATURES)
+    n = len(paths)
+    print(f"fid: {FID_SHAPES}+{FID_SHAPES} meshes x {FID_VIEWS} views at "
+          f"{FID_IMAGE}^2: render_s_per_mesh={t_render / n:.4f} "
+          f"feature_s_per_mesh={t_feat / n:.4f} wall_s_fid="
+          f"{runs[0][0]['wall_s_fid']:.3f} (cached rerun "
+          f"{runs[1][0]['wall_s_fid']:.3f}) peak_memory_bytes={peak} "
+          f"({peak / 2**30:.2f} GiB); phase 23 "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
+# phase 24: dataset preparation
+
+def write_prep_meshes(root, seed):
+    """``PREP_MESHES`` lumpy spheres marched on the card at
+    ``PREP_GRID``³ into ``root`` -> their face counts."""
+    from octfusion_tpu_torch.utils import mesh as mesh_utils
+    from octfusion_tpu_torch.utils.shapes import lumpy_sphere_fields
+
+    os.makedirs(root)
+    faces = []
+    for i, field in enumerate(lumpy_sphere_fields(
+            PREP_MESHES, PREP_GRID, seed, device=torch.device("cuda"))):
+        v, f = mesh_utils.marching_tetrahedra(field)
+        faces.append(f.shape[0])
+        mesh_utils.save_obj(os.path.join(root, f"lumpy_{i}.obj"),
+                            v.cpu().numpy(), f.cpu().numpy())
+    return faces
+
+
+def check_prep_card_vs_cpu(path) -> None:
+    """Phase 24's check on one mesh at ``PREP_CHECK_QUERIES`` queries:
+    the nearest sample and the winding numbers card vs CPU."""
+    from octfusion_tpu_torch.tools import prepare_dataset as prep
+    from octfusion_tpu_torch.utils import mesh as mesh_utils
+
+    v, f = mesh_utils.load_obj(path)
+    verts = prep.normalize_mesh(v)
+    surf, _, q = prep.surface_and_queries(verts, f, PREP_SURFACE,
+                                          PREP_CHECK_QUERIES)
+    out, secs = {}, {}
+    for d in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        dist, idx = prep.nearest_surface(q, surf, device=d)
+        w = prep.winding_number(verts, f, q, device=d)
+        secs[d] = time.perf_counter() - t0
+        out[d] = dist, idx, w
+    (d_card, i_card, w_card), (d_cpu, i_cpu, w_cpu) = out["cuda"], out["cpu"]
+    moved = np.nonzero(i_card != i_cpu)[0]
+    q64 = q[moved].astype(np.float64)
+    gap = np.abs(((q64 - surf[i_card[moved]]) ** 2).sum(-1)
+                 - ((q64 - surf[i_cpu[moved]]) ** 2).sum(-1))
+    clear = np.abs(w_cpu - 0.5) > WINDING_TIE
+    sign_card = np.where(w_card > 0.5, -1.0, 1.0)
+    sign_cpu = np.where(w_cpu > 0.5, -1.0, 1.0)
+    sdf_err = np.abs(d_card * sign_card - d_cpu * sign_cpu)[clear].max()
+    print(f"prep card vs cpu ({os.path.basename(path)}, {len(f)} faces, "
+          f"{PREP_SURFACE} samples, {len(q)} queries): dist max_abs_err="
+          f"{np.abs(d_card - d_cpu).max():.3e} other nearest index at "
+          f"{len(moved)} queries (near-ties, |d2 gap| max "
+          f"{gap.max() if len(moved) else 0.0:.3e}) winding max_abs_err="
+          f"{np.abs(w_card - w_cpu).max():.3e} within {WINDING_TIE:g} of "
+          f"1/2: {int((~clear).sum())} sdf max_abs_err={sdf_err:.3e} "
+          f"inside={float((w_cpu > 0.5).mean()):.3f} card_s="
+          f"{secs['cuda']:.3f} cpu_s={secs['cpu']:.3f}", flush=True)
+    np.testing.assert_allclose(d_card, d_cpu, rtol=0, atol=TOL_PREP_SDF)
+    if len(moved) and gap.max() > NEAR_TIE:
+        raise AssertionError(f"another nearest sample {gap.max()} apart")
+    np.testing.assert_allclose(w_card, w_cpu, rtol=0, atol=TOL_WINDING)
+    np.testing.assert_array_equal(sign_card[clear], sign_cpu[clear])
+    if sdf_err > TOL_PREP_SDF:
+        raise AssertionError(f"sdf card vs cpu {sdf_err}")
+    if not 0.05 < (w_cpu > 0.5).mean() < 0.95:
+        raise AssertionError("the queries are not inside and outside")
+
+
+def check_prepare_dataset(seed) -> dict:
+    """Phase 24: ``python -m octfusion_tpu_torch.tools.prepare_dataset``
+    on the card at its defaults over lumpy-sphere meshes, the card vs the
+    CPU on one mesh, then ``PREP_VAE_STEPS`` VAE steps of the train CLI
+    on the prepared set -> the train run's K1 / K2 / K3 launches."""
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as root:
+        raw, data = os.path.join(root, "raw"), os.path.join(root, "data")
+        faces = write_prep_meshes(raw, seed + 400)
+        print(f"prep meshes: {PREP_MESHES} lumpy spheres marched at "
+              f"{PREP_GRID}^3, faces {faces}", flush=True)
+        filelist = os.path.join(data, "filelist.txt")
+        cmd = [sys.executable, "-m", "octfusion_tpu_torch.tools."
+               "prepare_dataset", "--meshes", os.path.join(raw, "*.obj"),
+               "--out", data, "--filelist", filelist]
+        t0 = time.perf_counter()
+        res = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
+                             timeout=CLI_TIMEOUT)
+        wall = time.perf_counter() - t0
+        if res.returncode != 0:
+            raise AssertionError(f"prepare_dataset failed ({res.returncode})"
+                                 f":\n{res.stdout[-3000:]}\n"
+                                 f"{res.stderr[-3000:]}")
+        lines = res.stdout.splitlines()
+        for line in lines:
+            print(f"  {line}", flush=True)
+        summary = [ln for ln in lines if ln.startswith("[*] prepared")]
+        if len(summary) != 1 or f"prepared {PREP_MESHES} meshes on cuda" \
+                not in summary[0]:
+            raise AssertionError(f"prepare_dataset: {lines[-5:]}")
+        for i in range(PREP_MESHES):
+            sdf = np.load(os.path.join(data, f"lumpy_{i}", "sdf.npz"))
+            pc = np.load(os.path.join(data, f"lumpy_{i}", "pointcloud.npz"))
+            if (sdf["sdf"].shape != (PREP_QUERIES,)
+                    or pc["points"].shape != (PREP_SURFACE, 3)
+                    or not np.isfinite(sdf["sdf"]).all()
+                    or not np.isfinite(sdf["grad"]).all()):
+                raise AssertionError(f"lumpy_{i}: bad shards")
+        print(f"prep: wall_s={wall:.3f} (the process, its start included)",
+              flush=True)
+        check_prep_card_vs_cpu(os.path.join(raw, "lumpy_0.obj"))
+
+        cfg_path = cli_config(root, data, filelist,
+                              point_scale=PREP_TRAIN_POINT_SCALE)
+        _, fields, _ = run_cli("prep vae train", [
+            "--config", cfg_path, "--logs_dir", root, "--seed", str(seed),
+            "--model", "vae", "--name", "vae", "--batch_size", "2",
+            "--max_steps", str(PREP_VAE_STEPS)])
+        launches = check_cli_launches("prep vae train", fields)
+        if int(fields["steps"]) != PREP_VAE_STEPS:
+            raise AssertionError(f"prep vae train: {fields['steps']} steps")
+    print(f"phase 24: {time.perf_counter() - t_phase:.1f} s; launches "
+          f"{launches}", flush=True)
+    return launches
+
+
+# phase 25: depth 9
+
+def check_depth9(seed):
+    """Phase 25: K1 and K5 vs their plain versions at the depth-9 shapes
+    of a 2-step warm-up, then ``configs/synthetic_depth9.yaml`` through
+    the generate CLI (dpmpp-25, ``DEPTH9_SHAPES`` shapes, K5 on the grown
+    graph) from seeded perturbed weights saved as phase 13 saves them ->
+    ({kernel: KernelStats} at its shapes, {kernel: launches} of the CLI
+    run)."""
+    from octfusion_tpu_torch.config import load_config
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    cfg = load_config(DEPTH9_CONFIG)
+    solver = dpmpp_solver(cfg, seed + 9)
+
+    shapes = set()
+    hooks = conv_shape_hooks([solver.df, solver.vae], shapes)
+    warm = solver.sample(steps=2, kpack=False, compute_sdf=False,
+                         generator=torch.Generator(device=dev).manual_seed(
+                             seed + 91))
+    for h in hooks:
+        h.remove()
+    g_dec = warm["decode_out"]["graph_out"]
+    print_graph("depth9 warm-up decode", g_dec, allow_overflow=True)
+    kgen = torch.Generator(device=dev).manual_seed(seed + 92)
+    measured = {"graph_conv_fwd": check_kernel(g_dec, shapes, kgen)}
+    measured["graph_conv_fwd"].summary("k1 phase 25 (depth-9 sampling)")
+    measured["graph_conv_fwd_packed"] = check_packed_kernel(
+        warm["graph"],
+        {sh for sh in shapes if sh[0] <= cfg.model.depth_stop}, kgen)
+    measured["graph_conv_fwd_packed"].summary("k5 phase 25 (depth-9 "
+                                              "sampling)")
+    del warm, g_dec
+
+    with tempfile.TemporaryDirectory() as root:
+        ckpt_path, vae_path, cfg_path = save_for_generate(solver, cfg, root)
+        del solver
+        torch.cuda.empty_cache()
+        cmd = [sys.executable, "-m", "octfusion_tpu_torch.generate",
+               "--config", cfg_path, "--logs_dir", root, "--name", "d9",
+               "--ckpt", ckpt_path, "--vq_ckpt", vae_path,
+               "--count", str(DEPTH9_SHAPES), "--sampler", "dpmpp",
+               "--sample_steps", str(DPMPP_STEPS), "--seed", str(seed)]
+        env = dict(os.environ, OCTFUSION_CONV_KPACK="1")
+        t0 = time.perf_counter()
+        res = subprocess.run(cmd, cwd=REPO, env=env, capture_output=True,
+                             text=True, timeout=CLI_TIMEOUT)
+        wall = time.perf_counter() - t0
+        lines = res.stdout.splitlines()
+        for line in lines:
+            print(f"  {line}", flush=True)
+        if res.returncode != 0:
+            raise AssertionError(f"depth-9 generate failed "
+                                 f"({res.returncode}):\n{res.stderr[-3000:]}")
+        rdir = os.path.join(root, "d9", "results_airplane")
+        faces = []
+        for i in range(DEPTH9_SHAPES):
+            path = os.path.join(rdir, f"{i}.obj")
+            shape = [ln for ln in lines if ln.startswith(f"[*] shape {i}: ")]
+            if len(shape) != 1:
+                raise AssertionError(f"no line for shape {i}")
+            fields = dict(tok.split("=", 1) for tok in shape[0].split()
+                          if "=" in tok)
+            flags = shape[0].split("per_depth=")[1].split("]")[0]
+            flagged = ("1" in flags or fields["grow_graph"] == "1"
+                       or fields["decoded_graph"] == "1")
+            warned = any(ln.startswith("[!] static capacity overflow")
+                         and path in ln for ln in lines)
+            if flagged != warned:
+                raise AssertionError(f"shape {i}: overflow flags {flagged} "
+                                     f"but warning {warned}")
+            if fields["sdf_finite"] != "True" or int(fields["d9"]) <= 0:
+                raise AssertionError(f"shape {i}: {shape[0]}")
+            faces.append(nonempty_mesh(path))
+        summary = [ln for ln in lines if ln.startswith("[*] generated")]
+        if not summary:
+            raise AssertionError("depth-9 generate: no summary line")
+        gen = dict(tok.split("=", 1) for tok in summary[0].split()
+                   if "=" in tok)
+    launches = {"graph_conv_fwd": int(gen.get("graph_conv_fwd_launches", 0)),
+                "graph_conv_fwd_packed": int(
+                    gen.get("graph_conv_fwd_packed_launches", 0))}
+    if not launches["graph_conv_fwd_packed"]:
+        raise AssertionError("depth-9 generate ran no K5 launch")
+    print(f"depth9: {DEPTH9_SHAPES} shapes wall_s={wall:.3f} "
+          f"s_per_shape={gen['s_per_shape']} mesh faces={faces} "
+          f"(resolution {CLI_RESOLUTION}) peak_memory_bytes="
+          f"{gen['peak_memory_bytes']}; phase 25 "
+          f"{time.perf_counter() - t_phase:.1f} s; launches {launches}",
+          flush=True)
+    return measured, launches
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=200,
@@ -2725,6 +3098,19 @@ def main(argv=None):
     # ---- 22. data parallelism on the one card -------------------------
     for name, n in check_data_parallel(args.seed).items():
         launches[name] += n
+
+    # ---- 23. shading FID ----------------------------------------------
+    check_shading_fid(args.seed)
+
+    # ---- 24. dataset preparation --------------------------------------
+    for name, n in check_prepare_dataset(args.seed).items():
+        launches[name] += n
+
+    # ---- 25. depth 9 ---------------------------------------------------
+    measured_d9, launches_d9 = check_depth9(args.seed)
+    for name, stats in measured_d9.items():
+        measured[name].merge(stats)
+        launches[name] += launches_d9[name]
 
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)

@@ -28,7 +28,10 @@ kernel K5.
 Runs on the card unless ``--device cpu``; without a card the default
 raises.  Computes in fp32 with TF32 off, as the reference.  Prints ``[*] wrote <path>`` per mesh, then one line with the
 stage seconds per shape, the graph-conv kernels' launches and the peak
-memory.
+memory.  Before it, per shape: the decoded octree's node counts from
+``full_depth`` down, its per-depth overflow flags, whether the grown and
+the decoded graphs overflowed (either prints an ``[!]`` warning: a
+static cap truncated the shape) and whether the SDF grid is finite.
 """
 
 from __future__ import annotations
@@ -162,7 +165,9 @@ def _generate(args, joined: bool):
         path = os.path.join(rdir, f"{i}.obj")
         gen = torch.Generator(device=dev).manual_seed(shape_seed(args.seed, i))
         dec = solver.dp_cascade(label=label, generator=gen)
-        if bool(dec["overflow"]):
+        octree = dec["octree_out"]
+        decoded_ovf = bool(dec["graph_out"].any_overflow())
+        if bool(dec["overflow"]) or decoded_ovf:
             print(f"[!] static capacity overflow while generating {path} -- "
                   "raise capacity.finest_cap/edge_factor")
         seconds = dict(dec["seconds"])
@@ -175,6 +180,13 @@ def _generate(args, joined: bool):
             torch.cuda.synchronize(dev)
         t1 = time.perf_counter()
         seconds["sdf"] = t1 - t0
+        print(f"[*] shape {i}: nnum " + " ".join(
+            f"d{d}={n}" for d, n in enumerate(octree.nnum.tolist())
+            if d >= m.full_depth)
+            + f" overflow per_depth={octree.overflow.int().tolist()} "
+            f"grow_graph={int(dec['overflow'])} decoded_graph="
+            f"{int(decoded_ovf)} sdf_finite="
+            f"{bool(torch.isfinite(sdfs).all())}", flush=True)
         done = sdf_utils.export_meshes(sdfs, [path], bbmin=-sscale,
                                        bbmax=sscale,
                                        mesh_scale=cfg.data_test.point_scale)

@@ -646,3 +646,78 @@ def test_data_parallel_on_the_card(cuda):
     (backend, vals), = launch.spawn(_nccl_rank, 1, backend=None,
                                     device="cuda", timeout=300)
     assert backend == "nccl" and vals == [2.0, 2.0, 2.0]
+
+
+def _lumpy_mesh(seed, grid):
+    """A lumpy sphere marched on a ``grid``³ field -> (verts, faces)."""
+    from octfusion_tpu_torch.utils import mesh as mesh_utils
+    from octfusion_tpu_torch.utils.shapes import lumpy_sphere_fields
+
+    v, f = mesh_utils.marching_tetrahedra(lumpy_sphere_fields(1, grid,
+                                                              seed)[0])
+    return v.numpy(), f.numpy()
+
+
+@pytest.mark.cuda
+def test_raster_and_standin_features_card_match_cpu(cuda):
+    """Two meshes x 20 views at 299² (phase 23's check): the card's images
+    equal the CPU's within 1e-6 on >= 99.9% of the pixels (the same
+    float64 operations), the stand-in features within rtol 1e-4 / atol
+    1e-5."""
+    from octfusion_tpu_torch.metrics import fid, render
+
+    for seed in (1, 2):
+        v, f = _lumpy_mesh(seed, 64)
+        card = render.render_mesh_views_raster(v, f, device=cuda)
+        cpu = render.render_mesh_views_raster(v, f, device="cpu")
+        assert card.shape == (20, 299, 299) and (card > 0).mean() > 0.1
+        assert (np.abs(card - cpu) <= 1e-6).mean() >= 0.999
+        np.testing.assert_allclose(
+            fid.standin_feature_extractor(device=cuda)(card),
+            fid.standin_feature_extractor(device="cpu")(card),
+            rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_prepare_dataset_card_matches_cpu(cuda, tmp_path):
+    """One mesh, 4096 queries (phase 24's check): the nearest sample's
+    distance within 1e-6 and the same index except at a tie (both
+    indices' distances equal to 1e-12), winding numbers within 1e-4 and
+    the same sign wherever |w - 0.5| > 1e-3; ``mesh_to_shards`` writes
+    the same surface samples and queries from the card."""
+    from octfusion_tpu_torch.tools import prepare_dataset as prep
+    from octfusion_tpu_torch.utils import mesh as mesh_utils
+
+    v, f = _lumpy_mesh(3, 64)
+    path = str(tmp_path / "m.obj")
+    mesh_utils.save_obj(path, v, f)
+    for name, dev in (("card", cuda), ("cpu", "cpu")):
+        prep.mesh_to_shards(path, str(tmp_path / name), n_surface=20000,
+                            n_sdf=4096, device=dev)
+    card, cpu = (np.load(tmp_path / d / "sdf.npz") for d in ("card", "cpu"))
+    np.testing.assert_array_equal(card["points"], cpu["points"])
+    np.testing.assert_array_equal(
+        np.load(tmp_path / "card" / "pointcloud.npz")["points"],
+        np.load(tmp_path / "cpu" / "pointcloud.npz")["points"])
+    surf = np.load(tmp_path / "cpu" / "pointcloud.npz")["points"]
+    q = cpu["points"]
+    d_card, i_card = prep.nearest_surface(q, surf, device=cuda)
+    d_cpu, i_cpu = prep.nearest_surface(q, surf, device="cpu")
+    np.testing.assert_allclose(d_card, d_cpu, rtol=0, atol=1e-6)
+    moved = i_card != i_cpu
+    q64, s64 = q.astype(np.float64), surf.astype(np.float64)
+    gap = np.abs(((q64[moved] - s64[i_card[moved]]) ** 2).sum(-1)
+                 - ((q64[moved] - s64[i_cpu[moved]]) ** 2).sum(-1))
+    assert (gap <= 1e-12).all()
+    vv, ff = mesh_utils.load_obj(path)
+    vv = prep.normalize_mesh(vv)
+    w_card = prep.winding_number(vv, ff, q, device=cuda)
+    w_cpu = prep.winding_number(vv, ff, q, device="cpu")
+    np.testing.assert_allclose(w_card, w_cpu, rtol=0, atol=1e-4)
+    clear = np.abs(w_cpu - 0.5) > 1e-3
+    assert ((w_card > 0.5) == (w_cpu > 0.5))[clear].all()
+    assert 0.05 < (w_cpu > 0.5).mean() < 0.95
+    np.testing.assert_array_equal(np.sign(card["sdf"])[clear],
+                                  np.sign(cpu["sdf"])[clear])
+    np.testing.assert_allclose(card["sdf"][clear], cpu["sdf"][clear],
+                               rtol=0, atol=1e-6)

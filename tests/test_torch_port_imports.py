@@ -59,3 +59,15 @@ def test_guard_sees_the_forbidden_forms(tmp_path):
 def test_scan_covers_the_three_stage_modules(module):
     """The 3-stage solver and the tools that came with it are scanned."""
     assert os.path.join(REPO, module) in FILES
+
+
+@pytest.mark.parametrize("module", [
+    "octfusion_tpu_torch/metrics/render.py",
+    "octfusion_tpu_torch/metrics/fid.py",
+    "octfusion_tpu_torch/utils/jax_prng.py",
+    "octfusion_tpu_torch/tools/prepare_dataset.py"])
+def test_scan_covers_the_fid_and_preparation_modules(module):
+    """The renderer, shading FID, the copy of JAX's generator (which
+    draws the stand-in's weights without JAX) and dataset preparation are
+    scanned."""
+    assert os.path.join(REPO, module) in FILES
