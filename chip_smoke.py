@@ -271,11 +271,31 @@ input gradient and K5 packed forward; the Chamfer kernel K4):
    the node counts d4-d9, the per-depth and graph overflow flags (random
    weights overflow the grown depths, and a flag must come with the
    CLI's warning: no shape is truncated silently), a finite SDF and a
-   mesh with faces; prints s/shape, the faces and the peak memory.
+   mesh with faces; prints s/shape, the faces and the peak memory;
+26. the bf16 compute mode (``diffusion.compute_dtype: bfloat16``, the
+   JAX package's mixed precision: the hr U-Net's finest encoder levels
+   run bf16 graph convs, the rest fp32): the bf16 K1 and K5 against their
+   plain versions (the Pallas kernels' bf16 arithmetic; rtol 2^-7, atol
+   2^-7 of the reference's largest magnitude, K3's 2^-6) at every bf16
+   (level, C, C') of a 2-step warm-up cascade's depth-8 sampling graph,
+   timed beside the bf16 GEMM alone (and K5 beside bf16 K1) and the
+   bound at the bf16 tensor-core rate and 2-byte operands; one full-width
+   bf16 hr denoise step card vs CPU within twice the CPU's own
+   bf16-vs-fp32 gap and at least a quarter of it from the CPU's fp32
+   result; the 200 + 200 ancestral cascade and dpmpp-25 with
+   K5 in bf16 (bf16 K1 + K5 launches = the bf16 GraphConv calls; finite
+   codes and SDF, overflow flags, stage seconds, peak memory, beside
+   phases 5 and 12); the bf16 K2 and K3 against their plain versions at
+   the bf16 shapes of the batch-4 training graph; ``BF16_TRAIN_STEPS``
+   (12) hr train steps at batch 4 in bf16 (finite, falling loss; bf16 K1
+   launches = the bf16 GraphConv calls, bf16 K2 = K3 = the bf16 backward
+   calls).
 
 Prints the kernel summary as a JSON line (each kernel's ``launches`` is
 its count over the counted runs of phases 5, 8, 12, 17, 18, 19, 20, 21,
-22, 24 and 25, K4's over phases 10, 19 and 22; ``ms``, ``plain_ms``,
+22, 24 and 25, K4's over phases 10, 19 and 22, the four bf16 entry
+points' (``*_bf16``) over phase 26's cascades and training run; their
+``ms`` and the rest sum phase 26's shapes; ``ms``, ``plain_ms``,
 ``bound_ms`` and ``library_ms`` sum the shapes of phases 3, 6, 15, 20,
 21 and 25 (K1), 6, 15, 20 and 21 (K2, K3), 9 (K4), or 11, 20 and 25
 (K5), K1's and K3's ``gemm_ms`` the GEMM-alone yardstick over the same
@@ -398,6 +418,21 @@ PREP_TRAIN_POINT_SCALE = 1.0
 DEPTH9_CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                              "configs", "synthetic_depth9.yaml")
 DEPTH9_SHAPES = 2
+# phase 26
+# a bf16 kernel against its plain version: each rounds its fp32 sums to
+# bf16, in another order, so an element may sit a bf16 ulp (2^-8) off on
+# either side: rtol two ulps, atol two ulps of the reference's largest
+# magnitude.  K3 rounds the gathered dout where its plain version (the
+# Pallas order) rounds dout W_d^T, C' products apart: atol four ulps of
+# the largest magnitude (measured up to 6.85e-3 of it, PR 13)
+TOL_KERNEL_BF16 = 2.0**-7
+TOL_K3_BF16 = 2.0**-6
+GAP_FACTOR = 2.0        # bf16 card vs CPU: within twice the CPU's own
+                        # bf16-vs-fp32 gap
+GAP_FLOOR = 0.25        # and the card's bf16 result at least a quarter of
+                        # that gap from the CPU's fp32 one: the card
+                        # computed in bf16 where the CPU did
+BF16_TRAIN_STEPS = 12   # the first 2 are warm-up
 # phase 20
 TRAIN_STEPS_3T = 4      # per stage; the first 2 are warm-up
 CLI_3T_SHAPES = 4
@@ -416,6 +451,13 @@ REPLACES = {"graph_conv_fwd": f"{_PALLAS}:41",
             "graph_conv_bwd_dx": f"{_PALLAS}:110",
             "chamfer": "octfusion_tpu/ops/pallas/chamfer_kernel.py:30",
             "graph_conv_fwd_packed": f"{_PALLAS}:297"}
+# the bf16 entry points (phase 26): the same sources and Pallas kernels,
+# which the JAX package runs on bf16 operands under compute_dtype bfloat16
+BF16_KERNELS = ("graph_conv_fwd", "graph_conv_col", "graph_conv_bwd_dx",
+                "graph_conv_fwd_packed")
+for _name in BF16_KERNELS:
+    SOURCES[f"{_name}_bf16"] = SOURCES[_name]
+    REPLACES[f"{_name}_bf16"] = REPLACES[_name]
 
 
 @dataclasses.dataclass
@@ -543,6 +585,18 @@ def device_ms(fn, reps=20, warmup=3, tries=5):
     raise RuntimeError("the profiler's traces hold no device time")
 
 
+def add_launches(total, got) -> None:
+    """Adds ``got``'s launch counts to ``total``'s kernels; a kernel that
+    ``total`` does not count (a bf16 entry point, outside phase 26) must
+    not have launched."""
+    for name, n in got.items():
+        if name in total:
+            total[name] += n
+        elif n:
+            raise AssertionError(f"{name} launched {n} times outside the "
+                                 "phase that counts it")
+
+
 def analytic_reg(octree, full_depth, depth_out):
     """Per-node lumpy-sphere planes (n, r - radius) over ``octree``: the same
     shapes as the decoder's planes, a realistic iso-surface."""
@@ -567,59 +621,117 @@ def perturb_(modules, gen, scale=0.02):
                 p.add_(scale * torch.randn(p.shape, generator=gen).to(p))
 
 
-def conv_shape_hooks(modules, shapes):
+def conv_shape_hooks(modules, shapes, dtype=None):
     """Forward hooks noting (level, C incl. node types, C') of every
-    GraphConv call; returns the handles."""
+    GraphConv call (with ``dtype``, of every call on an input of that
+    dtype); returns the handles."""
     from octfusion_tpu_torch.nn.modules import GraphConv
 
     def hook(mod, args, out):
-        w = mod.weights
-        shapes.add((args[1].d, w.shape[0] // 7, w.shape[1]))
+        if dtype is None or args[0].dtype == dtype:
+            w = mod.weights
+            shapes.add((args[1].d, w.shape[0] // 7, w.shape[1]))
 
     return [m.register_forward_hook(hook) for mod in modules
             for m in mod.modules() if isinstance(m, GraphConv)]
 
 
-def check_kernel(graph, shapes, gen) -> KernelStats:
-    """Phases 3 and 6: K1 vs its plain version at each (level, C, C') of
-    ``graph``, timed beside the GEMM alone on the materialised column
-    buffer (``col @ W``, a yardstick the port never calls)."""
-    from octfusion_tpu_torch.ops import graph_conv_cuda as k1
+K1, K2K3, K5 = (("graph_conv_fwd",), ("graph_conv_col", "graph_conv_bwd_dx"),
+                ("graph_conv_fwd_packed",))
+_SHORT = {"graph_conv_fwd": "k1", "graph_conv_col": "k2",
+          "graph_conv_bwd_dx": "k3", "graph_conv_fwd_packed": "k5"}
+
+
+def kernel_tol(name, dtype, scale) -> dict:
+    """The tolerance of a kernel against its plain version: fp32
+    ``TOL_KERNEL``; bf16 rtol ``TOL_KERNEL_BF16`` and atol that share of
+    the reference's largest magnitude ``scale`` (K3's ``TOL_K3_BF16``)."""
+    if dtype == torch.float32:
+        return TOL_KERNEL
+    atol = TOL_K3_BF16 if name == "graph_conv_bwd_dx" else TOL_KERNEL_BF16
+    return dict(rtol=TOL_KERNEL_BF16, atol=atol * scale)
+
+
+def check_kernels(graph, shapes, gen, names, dtype=torch.float32):
+    """The graph-conv kernels ``names`` (of K1, K2, K3, K5) against their
+    plain versions at each (level, C, C') of ``graph`` on ``dtype``
+    operands (``kernel_tol``), timed with CUDA events beside a yardstick
+    the port never calls (K1: the GEMM alone on the materialised column
+    buffer, ``col @ W``; K3: ``dout @ W^T``; K5: K1) and the bound at the
+    rates of ``dtype`` -> {entry point (``*_bf16`` for bf16): KernelStats}."""
+    from octfusion_tpu_torch.ops import graph_conv_cuda as k
     from octfusion_tpu_torch.ops import roofline
 
     dev = torch.device("cuda")
-    stats = KernelStats()
+    bf16 = dtype == torch.bfloat16
+    suffix, elem = ("_bf16", roofline.BF16) if bf16 else ("", roofline.F32)
+    res = {name + suffix: KernelStats() for name in names}
+    label = "".join(_SHORT[n] for n in names) + (" bf16" if bf16 else "")
     for d, c, cout in sorted(shapes):
         lvl = graph.level(d)
-        row_ptr, col, scale = lvl.csr()
+        csr, csr_t = lvl.csr(), lvl.csr_t()
         edges = (lvl.edge_row, lvl.edge_col, lvl.edge_dir, lvl.edge_scale)
-        x = torch.randn(lvl.g_cap, c, device=dev, generator=gen)
-        w = torch.randn(7 * c, cout, device=dev, generator=gen) / (7 * c) ** 0.5
-        got = k1.graph_conv(x, w, row_ptr, col, scale)
-        ref = k1.graph_conv_plain(x, w, *edges)
-        torch.cuda.synchronize()
-        err = (got - ref).abs().max().item()
-        ref_max = ref.abs().max().item()
-        if not ref_max > 0:
-            raise AssertionError(f"all-zero reference at d={d} C={c}")
-        torch.testing.assert_close(got, ref, **TOL_KERNEL)
-        del got, ref
-        tk = cuda_ms(lambda: k1.graph_conv(x, w, row_ptr, col, scale))
-        tp = cuda_ms(lambda: k1.graph_conv_plain(x, w, *edges))
-        cbuf = k1.graph_conv_col_plain(x, *edges)
-        tg = cuda_ms(lambda: torch.matmul(cbuf, w))
-        del cbuf
-        e = int(lvl.n_edges)
-        cost = roofline.graph_conv_fwd_cost(lvl.g_cap, c, cout, e)
-        bound = stats.add(err, tk, tp, "graph_conv_fwd", cost, gemm_ms=tg)
-        print(f"k1 d={d} G={lvl.g_cap} E={e} C={c} C'={cout}"
-              f" max_abs_err={err:.3e} max_rel_err={err / ref_max:.3e}"
-              f" tol=rtol {TOL_KERNEL['rtol']:g} atol {TOL_KERNEL['atol']:g}"
-              f" kernel_ms={tk:.4f} plain_ms={tp:.4f} gemm_ms={tg:.4f}"
-              f" bound_ms={bound:.4f} share_of_bound={bound / tk:.3f}"
-              f" bound_fp32_ms={max(roofline.times_ms(*cost)):.4f}",
-              flush=True)
-    return stats
+        x = torch.randn(lvl.g_cap, c, device=dev, generator=gen).to(dtype)
+        dout = (torch.randn(lvl.g_cap, cout, device=dev,
+                            generator=gen).to(dtype)
+                if "graph_conv_bwd_dx" in names else None)
+        w = (torch.randn(7 * c, cout, device=dev, generator=gen)
+             / (7 * c) ** 0.5).to(dtype)
+        g, e = lvl.g_cap, int(lvl.n_edges)
+        fwd_cost = roofline.graph_conv_fwd_cost(g, c, cout, e, elem)
+        runs = {
+            "graph_conv_fwd": (
+                lambda: k.graph_conv(x, w, *csr),
+                lambda: k.graph_conv_plain(x, w, *edges), fwd_cost,
+                "gemm_ms", lambda cbuf: torch.matmul(cbuf, w)),
+            "graph_conv_fwd_packed": (
+                lambda: k.graph_conv_packed(x, w, *csr),
+                lambda: k.graph_conv_packed_plain(x, w, *edges), fwd_cost,
+                "k1_ms", lambda cbuf: k.graph_conv(x, w, *csr)),
+            "graph_conv_col": (
+                lambda: k.graph_conv_col(x, *csr),
+                lambda: k.graph_conv_col_plain(x, *edges),
+                roofline.graph_conv_col_cost(g, c, e, elem), None, None),
+            "graph_conv_bwd_dx": (
+                lambda: k.graph_conv_bwd_dx(dout, w, *csr_t),
+                lambda: k.graph_conv_bwd_dx_plain(dout, w, *edges),
+                roofline.graph_conv_bwd_dx_cost(g, c, cout, e, elem),
+                "gemm_ms", lambda cbuf: torch.matmul(dout, w.t())),
+        }
+        line = [f"{label} d={d} G={g} E={e} C={c} C'={cout}"]
+        for name in names:
+            kern, plain, cost, yard, yard_fn = runs[name]
+            got, ref = kern(), plain()
+            torch.cuda.synchronize()
+            if got.dtype != dtype:
+                raise AssertionError(f"{name}{suffix} returned {got.dtype}")
+            err = (got.float() - ref.float()).abs().max().item()
+            scale = ref.float().abs().max().item()
+            if not scale > 0:
+                raise AssertionError(f"all-zero {name} reference at {line}")
+            tol = kernel_tol(name, dtype, scale)
+            torch.testing.assert_close(got.float(), ref.float(), **tol,
+                                       msg=f"{name}{suffix} {line}")
+            del got, ref
+            tk, tp = cuda_ms(kern), cuda_ms(plain)
+            extra = {}
+            if yard is not None:
+                cbuf = (k.graph_conv_col_plain(x, *edges)
+                        if name == "graph_conv_fwd" else None)
+                extra[yard] = cuda_ms(lambda: yard_fn(cbuf))
+                del cbuf
+            bound = res[name + suffix].add(err, tk, tp, name + suffix, cost,
+                                           **extra)
+            line.append(f"{name}{suffix} max_abs_err={err:.3e} max_rel_err="
+                        f"{err / scale:.3e} tol=rtol {tol['rtol']:g} atol "
+                        f"{tol['atol']:.3g} kernel_ms={tk:.4f} plain_ms="
+                        f"{tp:.4f} " + "".join(f"{f}={v:.4f} "
+                                               for f, v in extra.items())
+                        + f"bound_ms={bound:.4f} share_of_bound="
+                        f"{bound / tk:.3f} bound_fp32_ms="
+                        f"{max(roofline.times_ms(*cost)):.4f}")
+        print(" | ".join(line), flush=True)
+    return res
 
 
 def check_hr_step(solver, g, seed):
@@ -642,58 +754,6 @@ def check_hr_step(solver, g, seed):
           f"tol=rtol {TOL_STEP['rtol']:g} atol {TOL_STEP['atol']:g}",
           flush=True)
     torch.testing.assert_close(got, ref, **TOL_STEP)
-
-
-def check_backward_kernels(graph, shapes, gen):
-    """Phase 6: K2 and K3 vs their plain versions at each (level, C, C'),
-    K3 timed beside the GEMM alone (``dout @ W^T``, as in its plain
-    version) -> {kernel: KernelStats}."""
-    from octfusion_tpu_torch.ops import graph_conv_cuda as k
-    from octfusion_tpu_torch.ops import roofline
-
-    dev = torch.device("cuda")
-    res = {"graph_conv_col": KernelStats(),
-           "graph_conv_bwd_dx": KernelStats()}
-    for d, c, cout in sorted(shapes):
-        lvl = graph.level(d)
-        csr, csr_t = lvl.csr(), lvl.csr_t()
-        edges = (lvl.edge_row, lvl.edge_col, lvl.edge_dir, lvl.edge_scale)
-        x = torch.randn(lvl.g_cap, c, device=dev, generator=gen)
-        dout = torch.randn(lvl.g_cap, cout, device=dev, generator=gen)
-        w = torch.randn(7 * c, cout, device=dev, generator=gen) / (7 * c) ** 0.5
-        e = int(lvl.n_edges)
-        runs = {
-            "graph_conv_col": (
-                lambda: k.graph_conv_col(x, *csr),
-                lambda: k.graph_conv_col_plain(x, *edges),
-                roofline.graph_conv_col_cost(lvl.g_cap, c, e), None),
-            "graph_conv_bwd_dx": (
-                lambda: k.graph_conv_bwd_dx(dout, w, *csr_t),
-                lambda: k.graph_conv_bwd_dx_plain(dout, w, *edges),
-                roofline.graph_conv_bwd_dx_cost(lvl.g_cap, c, cout, e),
-                lambda: torch.matmul(dout, w.t())),
-        }
-        line = [f"d={d} G={lvl.g_cap} E={e} C={c} C'={cout}"]
-        for name, (kern, plain, cost, gemm) in runs.items():
-            got, ref = kern(), plain()
-            torch.cuda.synchronize()
-            err = (got - ref).abs().max().item()
-            if not ref.abs().max().item() > 0:
-                raise AssertionError(f"all-zero {name} reference at {line}")
-            torch.testing.assert_close(got, ref, **TOL_KERNEL)
-            del got, ref
-            tk, tp = cuda_ms(kern), cuda_ms(plain)
-            tg = cuda_ms(gemm) if gemm else None
-            bound = res[name].add(err, tk, tp, name, cost, gemm_ms=tg)
-            line.append(f"{name} max_abs_err={err:.3e} kernel_ms={tk:.4f} "
-                        f"plain_ms={tp:.4f} "
-                        + (f"gemm_ms={tg:.4f} " if gemm else "")
-                        + f"bound_ms={bound:.4f} share_of_bound="
-                        f"{bound / tk:.3f}")
-        print("k2k3 " + " | ".join(line) + f" tol=rtol "
-              f"{TOL_KERNEL['rtol']:g} atol {TOL_KERNEL['atol']:g}",
-              flush=True)
-    return res
 
 
 def check_train_step(solver, cfg, batch, draws, seed):
@@ -894,18 +954,22 @@ def print_graph(label, g, allow_overflow: bool = False) -> None:
         raise AssertionError(f"the {label} batch's graph overflows")
 
 
-def training_setup(seed):
+def training_setup(seed, edit=None, dtype=None):
     """The hr stage of ``configs/octfusion_snet_uncond.yaml`` on the card
-    -> (trainer, config, batch, draws, the batch's graph, the (level, C,
-    C') of every conv of a train step's forward (K1: the frozen encoder's
-    included), those of the differentiable convs (K2, K3)).  Prints the
-    graph's sizes; raises if it overflows."""
+    (changed by ``edit(cfg)`` if given) -> (trainer, config, batch, draws,
+    the batch's graph, the (level, C, C') of every conv of a train step's
+    forward (K1: the frozen encoder's included), those of the
+    differentiable convs (K2, K3); with ``dtype``, only the convs on
+    inputs of that dtype).  Prints the graph's sizes; raises
+    if it overflows."""
     from octfusion_tpu_torch.config import load_config
     from octfusion_tpu_torch.models.union_solver import UnionSolver
     from octfusion_tpu_torch.utils.shapes import lumpy_spheres
 
     dev = torch.device("cuda")
     tcfg = load_config(TRAIN_CONFIG)
+    if edit is not None:
+        tcfg = edit(tcfg)
     torch.manual_seed(seed)
     trainer = UnionSolver(tcfg, device=dev)
     bsz = tcfg.data.batch_size
@@ -922,8 +986,8 @@ def training_setup(seed):
     # K1 runs at every conv's shape, the frozen encoder's included; K2 and
     # K3 only at the differentiable convs of the hr U-Net
     fwd_shapes, shapes = set(), set()
-    hooks = (conv_shape_hooks([trainer.vae], fwd_shapes)
-             + conv_shape_hooks([trainer.df], shapes))
+    hooks = (conv_shape_hooks([trainer.vae], fwd_shapes, dtype)
+             + conv_shape_hooks([trainer.df], shapes, dtype))
     with torch.no_grad():
         trainer.hr_loss(g_train,
                         trainer.vae.extract_code(g_train, eps=draws["eps"]),
@@ -941,8 +1005,8 @@ def check_training(seed):
     trainer, tcfg, batch, draws, g_train, fwd_shapes, shapes = \
         training_setup(seed)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    measured = {"graph_conv_fwd": check_kernel(g_train, fwd_shapes, gen),
-                **check_backward_kernels(g_train, shapes, gen)}
+    measured = {**check_kernels(g_train, fwd_shapes, gen, K1),
+                **check_kernels(g_train, shapes, gen, K2K3)}
     for name, label in (("graph_conv_fwd", "k1 phase 6 (training)"),
                         ("graph_conv_col", "k2 phase 6 (training)"),
                         ("graph_conv_bwd_dx", "k3 phase 6 (training)")):
@@ -1079,8 +1143,8 @@ def check_vae_training(seed):
     solver, cfg, batch, eps, g, shapes = vae_setup(seed)
     # ---- 15 -------------------------------------------------------------
     gen = torch.Generator(device=dev).manual_seed(seed + 14)
-    measured = {"graph_conv_fwd": check_kernel(g, shapes, gen),
-                **check_backward_kernels(g, shapes, gen)}
+    measured = {**check_kernels(g, shapes, gen, K1),
+                **check_kernels(g, shapes, gen, K2K3)}
     for name, label in (("graph_conv_fwd", "k1 phase 15 (vae training)"),
                         ("graph_conv_col", "k2 phase 15 (vae training)"),
                         ("graph_conv_bwd_dx", "k3 phase 15 (vae training)")):
@@ -1317,45 +1381,14 @@ def check_evaluation(seed) -> int:
     return launches
 
 
-def check_packed_kernel(graph, shapes, gen) -> KernelStats:
-    """Phase 11: K5 vs its plain version and K1 at each (level, C, C'),
-    then K5 under autograd."""
+def check_packed_autograd(graph, gen) -> None:
+    """Phase 11: K5 is forward only: a gradient through a packed level
+    raises, unlaunched; under no_grad it runs."""
     from octfusion_tpu_torch.octree.dual_graph import with_packed_levels
     from octfusion_tpu_torch.ops import graph_conv_cuda as k
-    from octfusion_tpu_torch.ops import graph_ops, roofline
+    from octfusion_tpu_torch.ops import graph_ops
 
     dev = torch.device("cuda")
-    stats = KernelStats()
-    for d, c, cout in sorted(shapes):
-        lvl = graph.level(d)
-        csr = lvl.csr()
-        edges = (lvl.edge_row, lvl.edge_col, lvl.edge_dir, lvl.edge_scale)
-        x = torch.randn(lvl.g_cap, c, device=dev, generator=gen)
-        w = torch.randn(7 * c, cout, device=dev, generator=gen) / (7 * c) ** 0.5
-        got = k.graph_conv_packed(x, w, *csr)
-        ref = k.graph_conv_packed_plain(x, w, *edges)
-        torch.cuda.synchronize()
-        err = (got - ref).abs().max().item()
-        ref_max = ref.abs().max().item()
-        if not ref_max > 0:
-            raise AssertionError(f"all-zero reference at d={d} C={c}")
-        torch.testing.assert_close(got, ref, **TOL_KERNEL)
-        del got, ref
-        tk = cuda_ms(lambda: k.graph_conv_packed(x, w, *csr))
-        tp = cuda_ms(lambda: k.graph_conv_packed_plain(x, w, *edges))
-        t1 = cuda_ms(lambda: k.graph_conv(x, w, *csr))
-        e = int(lvl.n_edges)
-        bound = stats.add(err, tk, tp, "graph_conv_fwd_packed",
-                          roofline.graph_conv_fwd_cost(lvl.g_cap, c, cout, e),
-                          k1_ms=t1)
-        print(f"k5 d={d} G={lvl.g_cap} E={e} C={c} C'={cout}"
-              f" max_abs_err={err:.3e} max_rel_err={err / ref_max:.3e}"
-              f" tol=rtol {TOL_KERNEL['rtol']:g} atol {TOL_KERNEL['atol']:g}"
-              f" kernel_ms={tk:.4f} plain_ms={tp:.4f} k1_ms={t1:.4f}"
-              f" bound_ms={bound:.4f} share_of_bound={bound / tk:.3f}",
-              flush=True)
-
-    # forward only: a gradient through a packed level raises, unlaunched
     packed = with_packed_levels(graph)
     lvl = packed.level(graph.spec.full_depth)
     x = torch.randn(lvl.g_cap, 8, device=dev, generator=gen)
@@ -1376,7 +1409,6 @@ def check_packed_kernel(graph, shapes, gen) -> KernelStats:
         graph_ops.graph_conv(x, w, lvl)
     print("k5 under autograd: raises (graph_ops.graph_conv on a packed "
           "level and the wrapper); under no_grad it runs", flush=True)
-    return stats
 
 
 def assert_same_tensors(a, b, what: str) -> None:
@@ -2038,20 +2070,21 @@ def check_three_stage(seed, steps):
     g_dec = warm["decode_out"]["graph_out"]
     print_graph("3t warm-up decode", g_dec, allow_overflow=True)
     kgen = torch.Generator(device=dev).manual_seed(seed + 21)
-    measured = {"graph_conv_fwd": check_kernel(g_dec, shapes, kgen)}
+    measured = check_kernels(g_dec, shapes, kgen, K1)
     measured["graph_conv_fwd"].summary("k1 phase 20 (3-stage sampling)")
-    measured["graph_conv_fwd_packed"] = check_packed_kernel(
+    measured.update(check_kernels(
         warm["graph"], {sh for sh in shapes if sh[0] <= solver.code_depth},
-        kgen)
+        kgen, K5))
+    check_packed_autograd(warm["graph"], kgen)
     measured["graph_conv_fwd_packed"].summary("k5 phase 20 (3-stage "
                                               "sampling)")
     del warm, g_dec
     trainers, batch, draws, g_train, enc, df = train_setup_3t(cfg, solver,
                                                               seed)
-    k1_train = check_kernel(g_train, enc | df, kgen)
+    k1_train = check_kernels(g_train, enc | df, kgen, K1)["graph_conv_fwd"]
     k1_train.summary("k1 phase 20 (3-stage training)")
     measured["graph_conv_fwd"].merge(k1_train)
-    measured.update(check_backward_kernels(g_train, df, kgen))
+    measured.update(check_kernels(g_train, df, kgen, K2K3))
     for name, label in (("graph_conv_col", "k2 phase 20 (3-stage training)"),
                         ("graph_conv_bwd_dx",
                          "k3 phase 20 (3-stage training)")):
@@ -2102,13 +2135,11 @@ def check_three_stage(seed, steps):
         del out, run
 
     # ---- (c) the train steps -----------------------------------------
-    for name, n in check_train_3t(cfg, trainers, batch, draws, seed).items():
-        launches[name] += n
+    add_launches(launches, check_train_3t(cfg, trainers, batch, draws, seed))
     del trainers
 
     # ---- (d) the CLI --------------------------------------------------
-    for name, n in check_cli_3t(cfg, solver, seed).items():
-        launches[name] += n
+    add_launches(launches, check_cli_3t(cfg, solver, seed))
     print(f"phase 20: {time.perf_counter() - t_phase:.1f} s; launches "
           f"{launches}", flush=True)
     return measured, launches
@@ -2168,8 +2199,8 @@ def check_color_vae(seed):
     if conv1 not in shapes or conv1[1] % 4 == 0:
         raise AssertionError(f"colour conv1 shape {conv1} not in {shapes}")
     gen = torch.Generator(device=dev).manual_seed(seed + 32)
-    measured = {"graph_conv_fwd": check_kernel(g, shapes, gen),
-                **check_backward_kernels(g, shapes, gen)}
+    measured = {**check_kernels(g, shapes, gen, K1),
+                **check_kernels(g, shapes, gen, K2K3)}
     for name, label in (("graph_conv_fwd", "k1 phase 21 (colour vae)"),
                         ("graph_conv_col", "k2 phase 21 (colour vae)"),
                         ("graph_conv_bwd_dx", "k3 phase 21 (colour vae)")):
@@ -2214,8 +2245,7 @@ def check_color_vae(seed):
             str(VAE_BATCH), "--max_steps", str(COLOR_CLI_STEPS)])
         if not any(f"color_loss_{m.depth_out}" in ln for ln in lines):
             raise AssertionError("the colour CLI printed no colour loss")
-        for name, n in check_cli_launches("color vae train", f).items():
-            launches[name] += n
+        add_launches(launches, check_cli_launches("color vae train", f))
     print(f"phase 21: {time.perf_counter() - t_phase:.1f} s; launches "
           f"{launches}", flush=True)
     return measured, launches
@@ -2542,8 +2572,7 @@ def check_data_parallel(seed):
                   f"{r0['allreduce_ms']:.3f} idle_share_rank0="
                   f"{r0['idle_share']:.3f}", flush=True)
         for r in ranks:
-            for name, n in r["launches"].items():
-                launches[name] += n
+            add_launches(launches, r["launches"])
         print(f"phase 22(a,b): {wall:.1f} s; launches "
               f"{[r['launches'] for r in ranks]}", flush=True)
         # (c) the train CLI under torchrun, one rank (NCCL)
@@ -2558,9 +2587,8 @@ def check_data_parallel(seed):
             "--batch_size", "4", "--max_steps", str(DP_CLI_STEPS)])
         if "(nccl)" not in " ".join(lines):
             raise AssertionError("the torchrun CLI did not join over NCCL")
-        for name, n in check_cli_launches("torchrun hr train",
-                                          fields[-1]).items():
-            launches[name] += n
+        add_launches(launches, check_cli_launches("torchrun hr train",
+                                                  fields[-1]))
         hr_ckpt = os.path.join(root, "hr", "ckpt", "steps-latest")
         plain = UnionSolver(load_config(cfg_path), device="cuda")
         step = plain.make_train_step()
@@ -2852,11 +2880,12 @@ def check_depth9(seed):
     g_dec = warm["decode_out"]["graph_out"]
     print_graph("depth9 warm-up decode", g_dec, allow_overflow=True)
     kgen = torch.Generator(device=dev).manual_seed(seed + 92)
-    measured = {"graph_conv_fwd": check_kernel(g_dec, shapes, kgen)}
+    measured = check_kernels(g_dec, shapes, kgen, K1)
     measured["graph_conv_fwd"].summary("k1 phase 25 (depth-9 sampling)")
-    measured["graph_conv_fwd_packed"] = check_packed_kernel(
+    measured.update(check_kernels(
         warm["graph"],
-        {sh for sh in shapes if sh[0] <= cfg.model.depth_stop}, kgen)
+        {sh for sh in shapes if sh[0] <= cfg.model.depth_stop}, kgen, K5))
+    check_packed_autograd(warm["graph"], kgen)
     measured["graph_conv_fwd_packed"].summary("k5 phase 25 (depth-9 "
                                               "sampling)")
     del warm, g_dec
@@ -2920,6 +2949,188 @@ def check_depth9(seed):
     return measured, launches
 
 
+# phase 26: the bf16 compute mode
+
+def with_bf16(cfg):
+    """``cfg`` with ``diffusion.compute_dtype: bfloat16``."""
+    return dataclasses.replace(cfg, diffusion=dataclasses.replace(
+        cfg.diffusion, compute_dtype="bfloat16"))
+
+
+def check_bf16_hr_step(solver, g, seed):
+    """Phase 26: one full-width bf16 hr denoise step, card against CPU,
+    within ``GAP_FACTOR`` times the CPU's own bf16-vs-fp32 gap on the same
+    weights and inputs (fp32 sums in another order can move a bf16
+    rounding by an ulp, and the U-Net carries such an ulp on), and at
+    least ``GAP_FLOOR`` times that gap from the CPU's fp32 result (a card
+    that computed the bf16 layers in fp32 would sit on it)."""
+    from octfusion_tpu_torch.nn.unet_union import UNetUnion
+
+    df = copy.deepcopy(solver.df).cpu()
+    gen = torch.Generator().manual_seed(seed)
+    perturb_([df], gen)
+    f32 = UNetUnion(dataclasses.replace(df.config, compute_dtype="float32"),
+                    "hr")
+    f32.load_state_dict(df.state_dict())
+    lvl = g.level(solver.small_depth)
+    x = torch.randn(lvl.g_cap, solver.cfg.model.embed_dim, generator=gen)
+    x = torch.where(lvl.node_mask.cpu()[:, None], x, torch.zeros_like(x))
+    t = solver.log_snr(torch.tensor([0.5]))
+    g_cpu = g.to("cpu")
+    with torch.no_grad():
+        ref = df("hr", x, t, g=g_cpu)
+        ref32 = f32("hr", x, t, g=g_cpu)
+        dev = torch.device("cuda")
+        got = df.to(dev)("hr", x.to(dev), t.to(dev), g=g).cpu()
+    err = (got - ref).abs().max().item()
+    gap = (ref - ref32).abs().max().item()
+    off32 = (got - ref32).abs().max().item()
+    print(f"bf16 hr_step G={lvl.g_cap} max_abs_err={err:.3e} "
+          f"cpu_bf16_vs_fp32_gap={gap:.3e} card_vs_cpu_fp32={off32:.3e} "
+          f"max_abs_ref={ref.abs().max().item():.3e} tol={GAP_FACTOR:g} x "
+          f"gap share_of_tol={err / (GAP_FACTOR * gap):.3f} floor="
+          f"{GAP_FLOOR:g} x gap", flush=True)
+    if not (got.dtype == torch.float32 and gap > 0
+            and err <= GAP_FACTOR * gap and off32 >= GAP_FLOOR * gap):
+        raise AssertionError(f"bf16 hr step card vs CPU: {err:.3e} > "
+                             f"{GAP_FACTOR:g} x {gap:.3e} or {off32:.3e} "
+                             f"from fp32 < {GAP_FLOOR:g} x gap")
+
+
+def run_bf16_cascade(label, solver, kpack, seed, **kw):
+    """Phase 26: one counted cascade of ``solver`` (bf16): bf16 K1 (and,
+    with ``kpack``, bf16 K5) launches must equal the bf16 GraphConv calls
+    -> (the cascade's output, its launches)."""
+    from octfusion_tpu_torch.nn.modules import GraphConv
+    from octfusion_tpu_torch.ops import graph_conv_cuda as k
+
+    gen = torch.Generator(device=solver.device).manual_seed(seed)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    k.reset_launches()
+    GraphConv.calls = GraphConv.calls_bf16 = 0
+    t0 = time.perf_counter()
+    out = solver.sample(resolution=RESOLUTION, kpack=kpack, generator=gen,
+                        **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, calls = dict(k.launches), GraphConv.calls_bf16
+    peak = torch.cuda.max_memory_allocated()
+    m = solver.cfg.model
+    code, sdfs = out["code"], out["sdfs"]
+    octree = out["decode_out"]["octree_out"]
+    print(f"bf16 {label}: wall_s={wall:.3f} "
+          + " ".join(f"{n}_s={v:.3f}" for n, v in out["seconds"].items())
+          + f" peak_memory_bytes={peak} ({peak / 2**30:.2f} GiB) "
+          f"k1_bf16_launches={launches['graph_conv_fwd_bf16']} "
+          f"k5_bf16_launches={launches['graph_conv_fwd_packed_bf16']} "
+          f"bf16_graph_conv_calls={calls} graph_conv_calls={GraphConv.calls}"
+          f" overflow grow_graph={bool(out['overflow'])} decoded_graph="
+          f"{bool(out['decode_out']['graph_out'].any_overflow())} per_depth="
+          f"{octree.overflow.int().tolist()} code_max_abs="
+          f"{code.abs().max().item():.4f} sdf_min={sdfs.min().item():.4f} "
+          f"sdf_max={sdfs.max().item():.4f}", flush=True)
+    bf16_launches = (launches["graph_conv_fwd_bf16"]
+                     + launches["graph_conv_fwd_packed_bf16"])
+    if not (bf16_launches == calls > 0
+            and (launches["graph_conv_fwd_packed_bf16"] > 0) == kpack):
+        raise AssertionError(f"bf16 {label}: bf16 launches {launches} vs "
+                             f"{calls} bf16 GraphConv calls")
+    if code.shape != (out["graph"].level(m.depth_stop).g_cap, m.embed_dim):
+        raise AssertionError(f"bf16 {label}: code shape {tuple(code.shape)}")
+    if sdfs.shape != (1,) + (RESOLUTION,) * 3:
+        raise AssertionError(f"bf16 {label}: sdf shape {tuple(sdfs.shape)}")
+    if not (code.dtype == torch.float32 and torch.isfinite(code).all()
+            and torch.isfinite(sdfs).all()):
+        raise AssertionError(f"bf16 {label}: non-finite codes or SDF")
+    return out, launches
+
+
+def check_bf16(seed, steps):
+    """Phase 26: the bf16 compute mode of the reference-parity model (the
+    snet config's U-Nets with ``compute_dtype: bfloat16``): the bf16 K1 /
+    K5 at the bf16 convs' shapes of a warm-up cascade's depth-8 sampling
+    graph, one hr denoise step card vs CPU, the 200 + 200 ancestral
+    cascade and dpmpp-25 with K5, the bf16 K2 / K3 at the bf16 shapes of
+    the batch-4 training graph and ``BF16_TRAIN_STEPS`` hr train steps ->
+    ({bf16 entry point: KernelStats}, {bf16 entry point: launches of the
+    cascades and the training run})."""
+    from octfusion_tpu_torch.config import Config
+    from octfusion_tpu_torch.models.union_solver import UnionSolver
+    from octfusion_tpu_torch.nn.modules import GraphConv
+    from octfusion_tpu_torch.ops import graph_conv_cuda as k
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    cfg = with_bf16(Config())
+    torch.manual_seed(seed)
+    solver = UnionSolver(cfg, device=dev)
+    shapes = set()
+    hooks = conv_shape_hooks([solver.df], shapes, torch.bfloat16)
+    warm = solver.sample(steps=2, resolution=RESOLUTION, kpack=False,
+                         generator=torch.Generator(device=dev).manual_seed(
+                             seed + 1))
+    for h in hooks:
+        h.remove()
+    print(f"bf16 sampling shapes (level, C, C'): {sorted(shapes)}",
+          flush=True)
+    measured = check_kernels(
+        warm["graph"], shapes,
+        torch.Generator(device=dev).manual_seed(seed + 2), K1 + K5,
+        torch.bfloat16)
+    check_bf16_hr_step(solver, warm["graph"], seed)
+    del warm
+
+    launches = dict.fromkeys(measured, 0)
+    launches.update({"graph_conv_col_bf16": 0, "graph_conv_bwd_dx_bf16": 0})
+    _, n = run_bf16_cascade(f"cascade steps={steps}+{steps}", solver, False,
+                            seed, steps=steps)
+    for name in launches:
+        launches[name] += n[name]
+    del solver
+    dsolver = dpmpp_solver(cfg, seed)
+    dsolver.sample(steps=2, resolution=RESOLUTION, kpack=True)
+    _, n = run_bf16_cascade(f"dpmpp cascade steps={DPMPP_STEPS}+"
+                            f"{DPMPP_STEPS} kpack=True", dsolver, True, seed,
+                            steps=DPMPP_STEPS)
+    for name in launches:
+        launches[name] += n[name]
+    del dsolver
+
+    trainer, _, batch, draws, g_train, _, shapes = training_setup(
+        seed, edit=with_bf16, dtype=torch.bfloat16)
+    print(f"bf16 training shapes (level, C, C'): {sorted(shapes)}",
+          flush=True)
+    measured.update(check_kernels(
+        g_train, shapes, torch.Generator(device=dev).manual_seed(seed + 3),
+        K2K3, torch.bfloat16))
+    del g_train
+    GraphConv.calls_bf16 = 0
+    k.GraphConvFunction.backward_calls_bf16 = 0
+    n = run_steps("bf16 train", trainer.make_train_step(), batch,
+                  BF16_TRAIN_STEPS, False, **draws)
+    calls, bwd = GraphConv.calls_bf16, k.GraphConvFunction.backward_calls_bf16
+    print(f"bf16 train launches fwd_bf16={n['graph_conv_fwd_bf16']} "
+          f"col_bf16={n['graph_conv_col_bf16']} bwd_dx_bf16="
+          f"{n['graph_conv_bwd_dx_bf16']} bf16_graph_conv_calls={calls} "
+          f"bf16_backward_calls={bwd}", flush=True)
+    if not (n["graph_conv_fwd_bf16"] == calls > 0
+            and n["graph_conv_col_bf16"] == n["graph_conv_bwd_dx_bf16"]
+            == bwd > 0):
+        raise AssertionError(f"bf16 train: launches {n} vs {calls} bf16 "
+                             f"GraphConv calls, {bwd} bf16 backward calls")
+    for name in launches:
+        launches[name] += n[name]
+    for name, label in (("graph_conv_fwd_bf16", "k1 bf16 phase 26"),
+                        ("graph_conv_fwd_packed_bf16", "k5 bf16 phase 26"),
+                        ("graph_conv_col_bf16", "k2 bf16 phase 26"),
+                        ("graph_conv_bwd_dx_bf16", "k3 bf16 phase 26")):
+        measured[name].summary(label)
+    print(f"phase 26: {time.perf_counter() - t_phase:.1f} s; launches "
+          + " ".join(f"{n}={v}" for n, v in launches.items()), flush=True)
+    return measured, launches
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=200,
@@ -2975,15 +3186,17 @@ def main(argv=None):
     for h in hooks:
         h.remove()
     g_warm = warm["decode_out"]["graph_out"]
-    k1 = check_kernel(
-        g_warm, shapes, torch.Generator(device=dev).manual_seed(args.seed))
+    k1 = check_kernels(
+        g_warm, shapes, torch.Generator(device=dev).manual_seed(args.seed),
+        K1)["graph_conv_fwd"]
     k1.summary("k1 phase 3 (sampling)")
 
     # ---- 11. K5 vs plain and K1 on the sampling graph's levels 4-6 -----
-    k5 = check_packed_kernel(
+    k5_gen = torch.Generator(device=dev).manual_seed(args.seed + 6)
+    k5 = check_kernels(
         warm["graph"], {sh for sh in shapes if sh[0] <= m.depth_stop}
-        | RAGGED_PACKED,
-        torch.Generator(device=dev).manual_seed(args.seed + 6))
+        | RAGGED_PACKED, k5_gen, K5)["graph_conv_fwd_packed"]
+    check_packed_autograd(warm["graph"], k5_gen)
     k5.summary("k5 phase 11")
 
     # ---- 4. one full-width hr denoise step, card vs CPU ---------------
@@ -3080,8 +3293,7 @@ def main(argv=None):
     launches["graph_conv_fwd_packed"] = k5_launches
 
     # ---- 19. the training CLI -----------------------------------------
-    for name, n in check_train_cli(args.seed).items():
-        launches[name] += n
+    add_launches(launches, check_train_cli(args.seed))
 
     # ---- 20. the 3-stage solver at obja-3t-d10 -------------------------
     measured_3t, launches_3t = check_three_stage(args.seed, args.steps)
@@ -3096,21 +3308,24 @@ def main(argv=None):
         launches[name] += launches_c[name]
 
     # ---- 22. data parallelism on the one card -------------------------
-    for name, n in check_data_parallel(args.seed).items():
-        launches[name] += n
+    add_launches(launches, check_data_parallel(args.seed))
 
     # ---- 23. shading FID ----------------------------------------------
     check_shading_fid(args.seed)
 
     # ---- 24. dataset preparation --------------------------------------
-    for name, n in check_prepare_dataset(args.seed).items():
-        launches[name] += n
+    add_launches(launches, check_prepare_dataset(args.seed))
 
     # ---- 25. depth 9 ---------------------------------------------------
     measured_d9, launches_d9 = check_depth9(args.seed)
     for name, stats in measured_d9.items():
         measured[name].merge(stats)
         launches[name] += launches_d9[name]
+
+    # ---- 26. the bf16 compute mode ------------------------------------
+    measured_bf, launches_bf = check_bf16(args.seed, args.steps)
+    measured.update(measured_bf)
+    launches.update(launches_bf)
 
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)

@@ -10,6 +10,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional, Tuple
 
+import torch
+
 from .octree.octree import OctreeSpec
 
 
@@ -74,6 +76,20 @@ class DataConfig:
     class_families: bool = False
 
 
+# diffusion.compute_dtype -> the dtype the U-Nets run their bodies in
+COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def check_compute_dtype(name: str) -> torch.dtype:
+    """The torch dtype of a ``compute_dtype`` name; raises ``ValueError``
+    for any name but float32 and bfloat16 (no config of the JAX package
+    offers another)."""
+    if name not in COMPUTE_DTYPES:
+        raise ValueError(f"diffusion.compute_dtype must be one of "
+                         f"{sorted(COMPUTE_DTYPES)}, not {name!r}")
+    return COMPUTE_DTYPES[name]
+
+
 @dataclasses.dataclass(frozen=True)
 class DiffusionConfig:
     timesteps: int = 1000
@@ -94,7 +110,12 @@ class DiffusionConfig:
     attention_resolutions: Tuple[int, ...] = (2, 4)
     num_heads: int = 4
     num_classes: Optional[int] = None
+    # "bfloat16": the U-Nets' mixed-precision flow of the JAX package
+    # (nn/unet_union.py); parameters, schedule and loss stay float32
     compute_dtype: str = "float32"
+
+    def __post_init__(self):
+        check_compute_dtype(self.compute_dtype)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -10,6 +10,17 @@ dense and conv kernels, zero biases, zero-init where it zero-inits).
 Graph residual blocks with ``use_checkpoint`` recompute their body in the
 backward (``torch.utils.checkpoint``, the reference's ckpt_conv_wrapper
 and the JAX package's ``remat``) whenever autograd records.
+
+Dtypes follow the JAX modules', which the bf16 compute mode
+(``compute_dtype: bfloat16``) exposes; parameters stay fp32 throughout:
+the graph convs and child mixes cast their weights to the input's dtype
+and compute in it; the dense layers (:class:`Linear`, :class:`Conv3d`)
+compute in the promoted dtype of input and parameters, as flax's
+``Dense`` / ``Conv`` with ``dtype=None`` do (PyTorch's would raise on a
+bf16 input and fp32 weights), so a bf16 input is raised to fp32; the
+norms take fp32 statistics and return the input's dtype; the attention
+softmax is fp32; time embeddings are added in the features' dtype.  In
+fp32 every cast is a no-op.
 """
 
 from __future__ import annotations
@@ -37,8 +48,33 @@ def lecun_normal_(w: torch.Tensor, fan_in: int) -> torch.Tensor:
         return nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std)
 
 
-def _linear(cin: int, cout: int, bias: bool = True) -> nn.Linear:
-    lin = nn.Linear(cin, cout, bias=bias)
+def _promoted(x, *params):
+    """``x`` and ``params`` (None kept) in their promoted dtype, as flax's
+    ``promote_dtype`` gives a layer whose ``dtype`` is None."""
+    dt = x.dtype
+    for p in params:
+        if p is not None:
+            dt = torch.promote_types(dt, p.dtype)
+    return [None if t is None else t.to(dt) for t in (x, *params)]
+
+
+class Linear(nn.Linear):
+    """``nn.Linear`` computing in the promoted dtype of input and
+    parameters (flax ``Dense``)."""
+
+    def forward(self, x):
+        return F.linear(*_promoted(x, self.weight, self.bias))
+
+
+class Conv3d(nn.Conv3d):
+    """``nn.Conv3d`` in the promoted dtype (flax ``Conv``)."""
+
+    def forward(self, x):
+        return self._conv_forward(*_promoted(x, self.weight, self.bias))
+
+
+def _linear(cin: int, cout: int, bias: bool = True) -> Linear:
+    lin = Linear(cin, cout, bias=bias)
     lecun_normal_(lin.weight, cin)
     if bias:
         nn.init.zeros_(lin.bias)
@@ -46,9 +82,9 @@ def _linear(cin: int, cout: int, bias: bool = True) -> nn.Linear:
 
 
 def _conv3d(cin: int, cout: int, kernel: int = 3, stride: int = 1,
-            zero_init: bool = False) -> nn.Conv3d:
+            zero_init: bool = False) -> Conv3d:
     """torch-style symmetric padding ``kernel // 2``, as the JAX ConvNd."""
-    conv = nn.Conv3d(cin, cout, kernel, stride=stride, padding=kernel // 2)
+    conv = Conv3d(cin, cout, kernel, stride=stride, padding=kernel // 2)
     if zero_init:
         nn.init.zeros_(conv.weight)
     else:
@@ -82,8 +118,10 @@ def group_count(channels: int, group: int = 32) -> int:
 class GraphConv(nn.Module):
     """7-edge-type graph convolution."""
 
-    # forward calls since the last reset (cf. graph_conv_cuda.launches)
+    # forward calls since the last reset, and those on a bf16 input (cf.
+    # graph_conv_cuda.launches)
     calls = 0
+    calls_bf16 = 0
 
     def __init__(self, in_channels: int, out_channels: int,
                  avg_degree: int = 7, n_node_type: int = 0,
@@ -101,7 +139,9 @@ class GraphConv(nn.Module):
 
     def forward(self, x, lvl: GraphLevel):
         GraphConv.calls += 1
-        return graph_ops.graph_conv(x, self.weights, lvl, self.n_node_type)
+        GraphConv.calls_bf16 += x.dtype == torch.bfloat16
+        return graph_ops.graph_conv(x, self.weights.to(x.dtype), lvl,
+                                    self.n_node_type)
 
 
 class DualOctreeGroupNorm(nn.Module):
@@ -160,13 +200,14 @@ class _ChildMix(nn.Module):
 
 class ChildDownsample(_ChildMix):
     def forward(self, x8):  # [N8, C] sibling-major -> [N8/8, C]
-        c = self.channels
-        return x8.reshape(-1, 8 * c) @ self.weights.flatten(1).t()
+        w = self.weights.flatten(1).t().to(x8.dtype)
+        return x8.reshape(-1, 8 * self.channels) @ w
 
 
 class ChildUpsample(_ChildMix):
     def forward(self, x):  # [N, C] -> [8N, C]
-        return (x @ self.weights.flatten(1)).reshape(-1, self.channels)
+        w = self.weights.flatten(1).to(x.dtype)
+        return (x @ w).reshape(-1, self.channels)
 
 
 class GraphDownsampleVAE(nn.Module):
@@ -346,8 +387,17 @@ def timestep_embedding(t, dim, max_period=10000.0):
 # ----------------------------------------------------------------------
 # dense 3D modules (lr U-Net), NCDHW
 # ----------------------------------------------------------------------
-def voxel_group_norm(channels: int) -> nn.GroupNorm:
-    return nn.GroupNorm(min(32, channels), channels, eps=1e-5)
+class VoxelGroupNorm(nn.GroupNorm):
+    """GroupNorm32 with statistics in at least fp32, returning the input's
+    dtype."""
+
+    def forward(self, x):
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        return super().forward(xf).to(x.dtype)
+
+
+def voxel_group_norm(channels: int) -> VoxelGroupNorm:
+    return VoxelGroupNorm(min(32, channels), channels, eps=1e-5)
 
 
 class ResnetBlock3D(nn.Module):
@@ -367,7 +417,7 @@ class ResnetBlock3D(nn.Module):
 
     def forward(self, x, emb):
         h = self.block1(x)
-        h = h + self.time_mlp(emb)[:, :, None, None, None]
+        h = h + self.time_mlp(emb)[:, :, None, None, None].to(h.dtype)
         h = self.block2(h)
         if self.res_conv is not None:
             x = self.res_conv(x)

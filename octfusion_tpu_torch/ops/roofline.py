@@ -6,7 +6,11 @@ Rates from NVIDIA's data sheet, at the 700 W power limit: 495 TFLOP/s of
 dense TF32 on the tensor cores (K1, K3 and K5, whose 3xTF32 split issues
 three tensor-core products per product: their bounds count the
 function's operations once at this rate, so no share can pass 100%),
-67 TFLOP/s in fp32 outside the tensor cores (K2), and 3.35 TB/s of HBM.
+989 TFLOP/s of dense bf16 on the tensor cores (the bf16 entry points of
+K1, K3 and K5, ``*_bf16``: one bf16 product per product), 67 TFLOP/s in
+fp32 outside the tensor cores (K2, whose sums stay fp32 in either
+dtype), and 3.35 TB/s of HBM.  The bf16 entry points move 2-byte
+operands (``elem`` = :data:`BF16`); the CSR stays 4-byte.
 K4 computes its distances on the tensor cores and keeps its minima on the
 integer units, so its operations' time (:func:`bound_times`) is the
 larger of its 8 FLOP per pair at the TF32 rate and its two minima per
@@ -20,6 +24,7 @@ from __future__ import annotations
 
 FP32_FLOPS = 67e12        # FLOP/s, fp32 outside the tensor cores
 TF32_FLOPS = 495e12       # FLOP/s, dense TF32 on the tensor cores
+BF16_FLOPS = 989e12       # FLOP/s, dense bf16 on the tensor cores
 HBM_BYTES = 3.35e12       # bytes/s
 # two-input minima/s: the DPX three-way minimum (VIMNMX3) issues at 64
 # per SM and clock (the CUDA C++ Programming Guide's throughput for 32-bit
@@ -28,13 +33,19 @@ HBM_BYTES = 3.35e12       # bytes/s
 MINIMA_RATE = 132 * 64 * 2 * 1.98e9
 N_EDGE_TYPE = 7
 F32 = 4
+BF16 = 2
 I32 = 4
 # the peak rate of the units each kernel's operations run on, by entry
-# point: the graph conv's GEMMs and K4's distances on the tensor cores,
-# K2's sums on the fp32 units
+# point: the graph conv's GEMMs and K4's distances on the tensor cores
+# (TF32, or bf16 for the ``_bf16`` entry points), K2's sums on the fp32
+# units
 FLOPS_RATE = {"graph_conv_fwd": TF32_FLOPS, "graph_conv_bwd_dx": TF32_FLOPS,
               "graph_conv_fwd_packed": TF32_FLOPS,
-              "graph_conv_col": FP32_FLOPS, "chamfer": TF32_FLOPS}
+              "graph_conv_col": FP32_FLOPS, "chamfer": TF32_FLOPS,
+              "graph_conv_fwd_bf16": BF16_FLOPS,
+              "graph_conv_bwd_dx_bf16": BF16_FLOPS,
+              "graph_conv_fwd_packed_bf16": BF16_FLOPS,
+              "graph_conv_col_bf16": FP32_FLOPS}
 
 
 def times_ms(flops: float, nbytes: float, flops_rate: float = FP32_FLOPS):
@@ -61,26 +72,28 @@ def _csr_bytes(g: int, e: int) -> int:
     return (N_EDGE_TYPE * g + 1) * I32 + e * (I32 + F32)
 
 
-def graph_conv_fwd_cost(g: int, c: int, cout: int, e: int):
+def graph_conv_fwd_cost(g: int, c: int, cout: int, e: int, elem: int = F32):
     """K1 and K5, ``out [G, C'] = col(x) @ W``: the GEMM's 2 * G * 7C * C'
     and the gather's 2 * E * C FLOP; x and W read, the CSR read, out
-    written -> (flops, bytes)."""
+    written, operands of ``elem`` bytes -> (flops, bytes)."""
     flops = 2 * g * N_EDGE_TYPE * c * cout + 2 * e * c
-    nbytes = (g * c + N_EDGE_TYPE * c * cout + g * cout) * F32 + _csr_bytes(g, e)
+    nbytes = ((g * c + N_EDGE_TYPE * c * cout + g * cout) * elem
+              + _csr_bytes(g, e))
     return flops, nbytes
 
 
-def graph_conv_bwd_dx_cost(g: int, c: int, cout: int, e: int):
+def graph_conv_bwd_dx_cost(g: int, c: int, cout: int, e: int,
+                           elem: int = F32):
     """K3, ``dx [G, C] = A^T (dout W^T)``: K1's cost with C and C'
     exchanged -> (flops, bytes)."""
-    return graph_conv_fwd_cost(g, cout, c, e)
+    return graph_conv_fwd_cost(g, cout, c, e, elem)
 
 
-def graph_conv_col_cost(g: int, c: int, e: int):
+def graph_conv_col_cost(g: int, c: int, e: int, elem: int = F32):
     """K2, the column buffer ``col(x)`` [G, 7C]: 2 * E * C FLOP; x and the
-    CSR read, col written -> (flops, bytes)."""
+    CSR read, col written, of ``elem`` bytes -> (flops, bytes)."""
     flops = 2 * e * c
-    nbytes = (g * c + g * N_EDGE_TYPE * c) * F32 + _csr_bytes(g, e)
+    nbytes = (g * c + g * N_EDGE_TYPE * c) * elem + _csr_bytes(g, e)
     return flops, nbytes
 
 

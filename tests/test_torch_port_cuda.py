@@ -721,3 +721,127 @@ def test_prepare_dataset_card_matches_cpu(cuda, tmp_path):
                                   np.sign(cpu["sdf"])[clear])
     np.testing.assert_allclose(card["sdf"][clear], cpu["sdf"][clear],
                                rtol=0, atol=1e-6)
+
+
+# ----------------------------------------------------------------------
+# the bf16 kernels (compute_dtype: bfloat16)
+# ----------------------------------------------------------------------
+# bf16 kernel against its plain version: each rounds its fp32 sums to bf16
+# (the column buffer, the output) in another order, so an element may sit
+# a bf16 ulp (2^-8) off on either side: rtol two ulps, atol two ulps of the
+# reference's largest magnitude.  K3's plain version rounds dout W_d^T (the
+# Pallas order) where the kernel rounds the gathered dout, C' products
+# apart: atol four ulps of the largest magnitude
+TOL_BF16 = 2.0**-7
+TOL_K3_BF16 = 2.0**-6
+
+
+def assert_close_bf16(got, ref, what="", atol_share=TOL_BF16):
+    assert got.dtype == ref.dtype == torch.bfloat16, what
+    scale = ref.float().abs().max().item()
+    assert scale > 0, what
+    torch.testing.assert_close(got.float(), ref.float(), rtol=TOL_BF16,
+                               atol=atol_share * scale, msg=what)
+
+
+# the snet hr U-Net's bf16 convs with their node-type columns ((3 + 5,
+# 128), (128 + 5, 128), (128 + 4, 128), (128 + 4, 256), (256 + 4, 256)),
+# a narrow C, ragged C and C' and a 3-column output
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,cout", [(8, 128), (133, 128), (132, 128),
+                                    (132, 256), (260, 256), (3, 16),
+                                    (6, 3), (31, 24)])
+def test_bf16_kernels_match_plain(cuda, c, cout):
+    """K1, K5, K2 and K3 on bf16 operands (their ``_bf16`` entry points)
+    against the plain versions' Pallas arithmetic at levels 4-6 and on the
+    synthetic edge-case level (slots of >= 2000 edges in both CSRs, empty
+    row tiles, G = 1000)."""
+    g = _graph(cuda, seed=10)
+    gen = torch.Generator(device=cuda).manual_seed(c + 2)
+    bf = torch.bfloat16
+    for lvl in _levels(g, cuda):
+        edges = (lvl.edge_row, lvl.edge_col, lvl.edge_dir, lvl.edge_scale)
+        csr, csr_t = lvl.csr(), lvl.csr_t()
+        x = torch.randn(lvl.g_cap, c, device=cuda, generator=gen).to(bf)
+        dout = torch.randn(lvl.g_cap, cout, device=cuda, generator=gen).to(bf)
+        w = (torch.randn(7 * c, cout, device=cuda, generator=gen)
+             / (7 * c) ** 0.5).to(bf)
+        n0 = dict(graph_conv_cuda.launches)
+        got = {"k1": graph_conv_cuda.graph_conv(x, w, *csr),
+               "k5": graph_conv_cuda.graph_conv_packed(x, w, *csr),
+               "k2": graph_conv_cuda.graph_conv_col(x, *csr),
+               "k3": graph_conv_cuda.graph_conv_bwd_dx(dout, w, *csr_t)}
+        for name in ("graph_conv_fwd", "graph_conv_fwd_packed",
+                     "graph_conv_col", "graph_conv_bwd_dx"):
+            assert graph_conv_cuda.launches[name + "_bf16"] == \
+                n0[name + "_bf16"] + 1, name
+            assert graph_conv_cuda.launches[name] == n0[name], name
+        ref = {"k1": graph_conv_cuda.graph_conv_plain(x, w, *edges),
+               "k5": graph_conv_cuda.graph_conv_packed_plain(x, w, *edges),
+               "k2": graph_conv_cuda.graph_conv_col_plain(x, *edges),
+               "k3": graph_conv_cuda.graph_conv_bwd_dx_plain(dout, w, *edges)}
+        torch.cuda.synchronize()
+        for k in got:
+            assert_close_bf16(got[k], ref[k], f"{k} level "
+                              f"{getattr(lvl, 'd', 'synthetic')} C={c} "
+                              f"C'={cout}",
+                              TOL_K3_BF16 if k == "k3" else TOL_BF16)
+
+
+@pytest.mark.cuda
+def test_bf16_kernels_refuse_mixed_dtypes(cuda):
+    lvl = _graph(cuda, seed=3).level(5)
+    x = torch.zeros(lvl.g_cap, 8, device=cuda, dtype=torch.bfloat16)
+    w = torch.zeros(56, 8, device=cuda)
+    with pytest.raises(TypeError):
+        graph_conv_cuda.graph_conv(x, w, *lvl.csr())
+    with pytest.raises(TypeError):
+        graph_conv_cuda.graph_conv_bwd_dx(x, w, *lvl.csr_t())
+    with pytest.raises(TypeError, match="w has dtype"):
+        graph_ops.graph_conv(x, w, lvl)
+
+
+@pytest.mark.cuda
+def test_bf16_hr_unet_card_matches_cpu(cuda):
+    """The tiny config's hr U-Net with ``compute_dtype: bfloat16``: the
+    card (bf16 kernels, launched) against the CPU (plain versions) within
+    twice the CPU's own bf16-vs-fp32 gap; its gradients too."""
+    import dataclasses
+
+    from octfusion_tpu_torch.nn.unet_union import UNetUnion
+    from octfusion_tpu_torch.utils.shapes import lumpy_spheres
+
+    cfg = _tiny_config()
+    cfg = dataclasses.replace(cfg, diffusion=dataclasses.replace(
+        cfg.diffusion, compute_dtype="bfloat16"))
+    solver = UnionSolver(cfg, device="cpu")
+    net = _perturbed(solver.df, 0)
+    f32 = UNetUnion(dataclasses.replace(solver.union_cfg,
+                                        compute_dtype="float32"), "hr")
+    f32.load_state_dict(net.state_dict())
+    pts, nrm = lumpy_spheres(1, 2048, seed=1)
+    g = solver.batch_graph({"points": pts, "normals": nrm})
+    lvl = g.level(solver.small_depth)
+    x = torch.randn(lvl.g_cap, cfg.model.embed_dim,
+                    generator=torch.Generator().manual_seed(2))
+    t = torch.tensor([0.4])
+    outs, grads = [], []
+    for model, dev in ((net, "cpu"), (f32, "cpu"), (net, cuda)):
+        model.to(dev).zero_grad()
+        n0 = graph_conv_cuda.launches["graph_conv_fwd_bf16"]
+        out = model("hr", x.to(dev), t.to(dev), g=g.to(dev))
+        (out ** 2).sum().backward()
+        if dev != "cpu":
+            assert graph_conv_cuda.launches["graph_conv_fwd_bf16"] > n0
+        outs.append(out.detach().cpu().clone())
+        grads.append({n: p.grad.detach().cpu().clone()
+                      for n, p in model.named_parameters()
+                      if p.grad is not None})
+    cpu, cpu32, card = outs
+    gap = (cpu - cpu32).abs().max().item()
+    assert card.dtype == torch.float32 and gap > 0
+    assert (card - cpu).abs().max().item() <= 2 * gap
+    for n, gr in grads[0].items():
+        leaf_gap = (gr - grads[1][n]).abs().max().item()
+        floor = 1e-6 * max(v.abs().max().item() for v in grads[0].values())
+        assert (grads[2][n] - gr).abs().max().item() <= 2 * leaf_gap + floor, n
