@@ -172,9 +172,9 @@ input gradient and K5 packed forward; the Chamfer kernel K4):
    configuration: ``configs/octfusion_obja_uncond.yaml``'s diffusion
    (lr 64 ch, hr 128 ch on split_large, feature 64 ch; input depths 4 / 6
    / 8; x0; batch 2) over ``configs/vae_obja_depth1084.yaml``'s depth-10
-   VAE and caps (finest_cap 1048576; ``profile_step.config_3t``), seeded
+   VAE and caps (finest_cap 1048576; ``config_3t``), seeded
    weights perturbed with seeded noise, lumpy spheres at
-   ``profile_step.SHAPE_SCALE_3T`` (0.8) of their size (at full size
+   ``SHAPE_SCALE_3T`` (0.8) of their size (at full size
    they overflow the depth-6 cap).  (a) K1 vs plain at every
    (level, C, C') of a 2-step warm-up cascade (levels 4-10: the hr and
    feature U-Nets and the decoder to depth 10) and of the batch-2
@@ -342,6 +342,14 @@ RESOLUTION = 256        # SDF grid side, as the reference
 TRAIN_STEPS = 12        # phase 8; at least 10, the first 2 are warm-up
 TRAIN_CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                             "configs", "octfusion_snet_uncond.yaml")
+# phase 20: the 3-stage model's diffusion, data, solver, train | its
+# depth-10 VAE's model, capacity (config_3t)
+CONFIG_3T = tuple(os.path.join(os.path.dirname(TRAIN_CONFIG), name) for name
+                  in ("octfusion_obja_uncond.yaml", "vae_obja_depth1084.yaml"))
+# the lumpy spheres, sized for the default caps, overflow the Objaverse
+# caps at depths 6-8 (4096 / 16384 / 65536 a sample); at 0.8 of their size
+# they fit every level
+SHAPE_SCALE_3T = 0.8
 # phases 9 and 10
 EVAL_POINTS = 2048      # points per cloud, the reference's protocol
 TOL_CHAMFER = dict(rtol=1e-4, atol=1e-6)   # fp32 clouds in the unit cube
@@ -1804,12 +1812,18 @@ def check_train_cli(seed) -> dict:
     return launches
 
 
+def config_3t():
+    """The obja-3t-d10 configuration: the 3-stage model over the depth-10
+    VAE and caps of ``CONFIG_3T``."""
+    from octfusion_tpu_torch.config import load_config, with_vae
+
+    return with_vae(*(load_config(p) for p in CONFIG_3T))
+
+
 def lumpy_batch_3t(cfg, batch_size, seed):
     """``batch_size`` seeded lumpy spheres of ``data.points_per_shape``
-    points on the card, at ``profile_step.SHAPE_SCALE_3T`` of their size,
-    so that they fit the Objaverse caps (at full size they overflow depth
-    6)."""
-    from octfusion_tpu_torch.profile_step import SHAPE_SCALE_3T
+    points on the card, at ``SHAPE_SCALE_3T`` of their size, so that
+    they fit the Objaverse caps (at full size they overflow depth 6)."""
     from octfusion_tpu_torch.utils.shapes import lumpy_spheres
 
     pts, nrm = lumpy_spheres(batch_size, cfg.data.points_per_shape, seed,
@@ -1953,7 +1967,6 @@ def check_cli_3t(cfg, solver, seed) -> dict:
     with a seeded depth-10 VAE as ``--vq_ckpt``, then generate (dpmpp-25)
     -> the runs' K1 / K2 / K3 launches."""
     from octfusion_tpu_torch.config import dump_config
-    from octfusion_tpu_torch.profile_step import SHAPE_SCALE_3T
     from octfusion_tpu_torch.utils import ckpt
     from octfusion_tpu_torch.utils.shapes import write_shapenet_set
 
@@ -2046,7 +2059,6 @@ def check_three_stage(seed, steps):
     from octfusion_tpu_torch.models.union_3t_solver import Union3TSolver
     from octfusion_tpu_torch.nn.modules import GraphConv
     from octfusion_tpu_torch.ops import graph_conv_cuda as k
-    from octfusion_tpu_torch.profile_step import config_3t
 
     t_phase = time.perf_counter()
     dev = torch.device("cuda")

@@ -18,6 +18,7 @@ from typing import Callable, Optional
 
 import torch
 
+from ..utils import trace
 from .schedule import log_snr_to_alpha_sigma, sampling_time_pairs
 
 
@@ -71,36 +72,39 @@ def sample_loop(
     x_start = torch.zeros(shape, **f32)
 
     for i in range(steps):
-        t, t_next = t_arr[i], t_next_arr[i]
-        snr = log_snr_fn(t)
-        snr_next = log_snr_fn(t_next)
-        alpha, sigma = log_snr_to_alpha_sigma(snr)
-        alpha_next, sigma_next = log_snr_to_alpha_sigma(snr_next)
-        tb = torch.full((batch_size,), snr.item(), **f32)
-        out = denoise_fn(x, tb, x_start)
-        if snap_sign and bool(t < truncated_index):
-            out = torch.sign(out)
-        if df_type == "x0":
-            if eta == 0.0:
-                # DDIM (eta=0): eps from the x0 prediction, re-noised
-                eps = (x - alpha.item() * out) / max(sigma.item(), 1e-8)
-                x = alpha_next.item() * out + sigma_next.item() * eps
+        with trace.span("octf.sampler.step"):
+            t, t_next = t_arr[i], t_next_arr[i]
+            snr = log_snr_fn(t)
+            snr_next = log_snr_fn(t_next)
+            alpha, sigma = log_snr_to_alpha_sigma(snr)
+            alpha_next, sigma_next = log_snr_to_alpha_sigma(snr_next)
+            tb = torch.full((batch_size,), snr.item(), **f32)
+            with trace.span("octf.sampler.denoise"):
+                out = denoise_fn(x, tb, x_start)
+            if snap_sign and bool(t < truncated_index):
+                out = torch.sign(out)
+            if df_type == "x0":
+                if eta == 0.0:
+                    # DDIM (eta=0): eps from the x0 prediction, re-noised
+                    eps = (x - alpha.item() * out) / max(sigma.item(), 1e-8)
+                    x = alpha_next.item() * out + sigma_next.item() * eps
+                else:
+                    c = -torch.expm1(snr - snr_next)
+                    x = alpha_next.item() * (
+                        x * (1 - c).item() / alpha.item() + c.item() * out)
+                    if bool(t_next > truncated_index):
+                        std = torch.sqrt(torch.clamp(sigma_next**2 * c,
+                                                     min=0.0))
+                        raw = (step_noise[i] if step_noise is not None else
+                               torch.randn(shape, generator=generator, **f32))
+                        x = x + std.item() * raw
+                x_start = out
+            elif df_type == "eps":
+                x0 = (x - out * sigma.item()) / max(alpha.item(), 1e-8)
+                x = x0 * alpha_next.item() + out * sigma_next.item()
+                x_start = x0
             else:
-                c = -torch.expm1(snr - snr_next)
-                x = alpha_next.item() * (
-                    x * (1 - c).item() / alpha.item() + c.item() * out)
-                if bool(t_next > truncated_index):
-                    std = torch.sqrt(torch.clamp(sigma_next**2 * c, min=0.0))
-                    raw = (step_noise[i] if step_noise is not None else
-                           torch.randn(shape, generator=generator, **f32))
-                    x = x + std.item() * raw
-            x_start = out
-        elif df_type == "eps":
-            x0 = (x - out * sigma.item()) / max(alpha.item(), 1e-8)
-            x = x0 * alpha_next.item() + out * sigma_next.item()
-            x_start = x0
-        else:
-            raise ValueError(df_type)
+                raise ValueError(df_type)
     return x
 
 
@@ -141,26 +145,28 @@ def _sample_loop_dpmpp(
     d_prev = torch.zeros(shape, **f32)
     h_prev = None
     for i in range(steps):
-        t, t_next = t_arr[i], t_next_arr[i]
-        snr = log_snr_fn(t)
-        snr_next = log_snr_fn(t_next)
-        alpha, sigma = log_snr_to_alpha_sigma(snr)
-        alpha_next, sigma_next = log_snr_to_alpha_sigma(snr_next)
-        tb = torch.full((batch_size,), snr.item(), **f32)
-        out = denoise_fn(x, tb, d_prev)
-        if snap_sign and bool(t < truncated_index):
-            out = torch.sign(out)
-        if df_type == "x0":
-            d = out
-        else:
-            d = (x - sigma.item() * out) / max(alpha.item(), 1e-8)
-        h = (snr_next - snr) * 0.5
-        r = h_prev / h if h_prev is not None else torch.tensor(math.inf)
-        w = 1.0 / (2.0 * r)
-        d_hat = (1.0 + w).item() * d - w.item() * d_prev
-        x = ((sigma_next / torch.clamp(sigma, min=1e-20)).item() * x
-             - (alpha_next * torch.expm1(-h)).item() * d_hat)
-        d_prev, h_prev = d, h
+        with trace.span("octf.sampler.step"):
+            t, t_next = t_arr[i], t_next_arr[i]
+            snr = log_snr_fn(t)
+            snr_next = log_snr_fn(t_next)
+            alpha, sigma = log_snr_to_alpha_sigma(snr)
+            alpha_next, sigma_next = log_snr_to_alpha_sigma(snr_next)
+            tb = torch.full((batch_size,), snr.item(), **f32)
+            with trace.span("octf.sampler.denoise"):
+                out = denoise_fn(x, tb, d_prev)
+            if snap_sign and bool(t < truncated_index):
+                out = torch.sign(out)
+            if df_type == "x0":
+                d = out
+            else:
+                d = (x - sigma.item() * out) / max(alpha.item(), 1e-8)
+            h = (snr_next - snr) * 0.5
+            r = h_prev / h if h_prev is not None else torch.tensor(math.inf)
+            w = 1.0 / (2.0 * r)
+            d_hat = (1.0 + w).item() * d - w.item() * d_prev
+            x = ((sigma_next / torch.clamp(sigma, min=1e-20)).item() * x
+                 - (alpha_next * torch.expm1(-h)).item() * d_hat)
+            d_prev, h_prev = d, h
     return x
 
 

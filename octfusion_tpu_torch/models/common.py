@@ -14,6 +14,7 @@ import torch
 
 from ..octree.dual_graph import DualGraph, GraphSpec, build_dual_graph
 from ..octree.octree import Octree, OctreeSpec, build_octree, merge_octrees
+from ..utils import trace
 
 
 def batch_to_octree(points: torch.Tensor, normals: torch.Tensor,
@@ -73,17 +74,44 @@ def flatten_pos(pos: torch.Tensor):
 
 
 class Laps:
-    """Wall seconds of named stages; the device is synchronised at each
-    stage end, so a stage's seconds include its device work."""
+    """Wall seconds of named stages, each stage also the tracing span
+    ``octf.<layer>.<stage>`` (``utils/trace``).  Used as a with-block:
+    ``lap(name)`` ends the stage that is open and begins ``name``, and
+    leaving the block ends the last one.  A stage's seconds run from the
+    end of the stage before it (the first's from the block's start) to its
+    own end.  With ``sync`` the device is synchronised at each stage end,
+    so a stage's seconds include its device work; without it nothing
+    waits for the device."""
 
-    def __init__(self, device):
+    def __init__(self, device, layer: str, sync: bool = True):
         self.device = torch.device(device)
+        self.layer = layer
+        self.sync = sync and self.device.type == "cuda"
         self.seconds: Dict[str, float] = {}
+        self._name: Optional[str] = None
+        self._span = None
+
+    def __enter__(self) -> "Laps":
         self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        self._end()
+        return False
 
     def __call__(self, name: str) -> None:
-        if self.device.type == "cuda":
+        self._end()
+        self._name = name
+        self._span = trace.span(f"octf.{self.layer}.{name}")
+        self._span.__enter__()
+
+    def _end(self) -> None:
+        if self._name is None:
+            return
+        if self.sync:
             torch.cuda.synchronize(self.device)
         now = time.perf_counter()
-        self.seconds[name] = now - self._t0
+        self.seconds[self._name] = now - self._t0
         self._t0 = now
+        self._span.__exit__(None, None, None)
+        self._name = self._span = None

@@ -67,20 +67,21 @@ class Union3TSolver(UnionSolver):
         if self.stage_flag == "lr":
             return self.lr_loss(batch, label, times, noise, generator, lap)
         b = batch["points"].shape[0]
+        lap("graph")
         if self.stage_flag == "hr":
             octree, g = batch_to_graph(batch["points"], batch["normals"],
                                        self.spec1, self.edge_factor,
                                        up_to=self.hr_depth)
-            lap("graph")
+            lap("forward_backward")
             split = split_codec.octree2split_large(octree, self.hr_depth)
             pad = split.new_zeros(g.spec.cur_off(self.hr_depth), 8)
             x, depth = torch.cat([pad, split], dim=0), self.hr_depth
         else:
             g = self.batch_graph(batch)
-            lap("graph")
+            lap("encode")
             with torch.no_grad():   # the frozen VAE's codes are the target
                 x = self.vae.extract_code(g, eps=eps, generator=generator)
-            lap("encode")
+            lap("forward_backward")
             depth = self.code_depth
         lvl = g.level(depth)
         kind = self.stage_flag
@@ -168,52 +169,54 @@ class Union3TSolver(UnionSolver):
         if kpack is None:
             kpack = use_kpack()
         self.df.eval()
-        lap = Laps(self.device)
-        if split_small is None:
-            split_small = self.sample_lr(
-                batch_size, label=label, steps=steps, noise_stream=lr_noise,
-                generator=generator)
-        else:
-            split_small = split_small.to(self.device, torch.float32)
-        lap("lr")
-        octree_small, g_small = self._grow_fn(batch_size, kpack)(split_small)
-        lap("grow6")
-        out = {"split_small": split_small, "octree_small": octree_small,
-               "graph_small": g_small, "seconds": lap.seconds}
-        if self.stage_flag == "lr":
-            return out
-        split_large = self.sample_stage(
-            g_small, self.hr_depth, 8, "hr", batch_size, label, steps,
-            hr_noise, generator)
-        lap("hr")
-        octree_large, g = self.grow_large(octree_small, g_small, split_large,
-                                          kpack)
-        lap("grow8")
-        ovf_small, ovf_large = g_small.any_overflow(), g.any_overflow()
-        out.update(split_large=split_large, octree_large=octree_large,
-                   graph=g, overflow_small=ovf_small,
-                   overflow_large=ovf_large, overflow=ovf_small | ovf_large)
-        if self.stage_flag == "hr":
-            return out
-        code = self.sample_stage(
-            g, self.code_depth, m.embed_dim, "feature", batch_size, label,
-            steps, feature_noise, generator)
-        lap("feature")
-        dec = self.vae.decode_grow(code, g)
-        lap("decode")
-        out.update(code=code, decode_out=dec)
-        if not compute_sdf:
-            return out
-        out["sdfs"] = sdf_utils.calc_sdf(
-            dec["reg_voxs"][m.depth_out], dec["octree_out"],
-            m.full_depth, m.depth_out,
-            size=resolution or self.cfg.solver.resolution,
-            bbmin=-self.cfg.solver.sdf_scale,
-            bbmax=self.cfg.solver.sdf_scale,
-        )
-        lap("sdf")
-        if mesh:
-            out["meshes"] = [mesh_utils.marching_tetrahedra(s)
-                             for s in out["sdfs"]]
-            lap("marching")
+        with Laps(self.device, "sample") as lap:
+            lap("lr")
+            if split_small is None:
+                split_small = self.sample_lr(
+                    batch_size, label=label, steps=steps,
+                    noise_stream=lr_noise, generator=generator)
+            else:
+                split_small = split_small.to(self.device, torch.float32)
+            lap("grow6")
+            octree_small, g_small = self._grow_fn(batch_size,
+                                                  kpack)(split_small)
+            out = {"split_small": split_small, "octree_small": octree_small,
+                   "graph_small": g_small, "seconds": lap.seconds}
+            if self.stage_flag == "lr":
+                return out
+            lap("hr")
+            split_large = self.sample_stage(
+                g_small, self.hr_depth, 8, "hr", batch_size, label, steps,
+                hr_noise, generator)
+            lap("grow8")
+            octree_large, g = self.grow_large(octree_small, g_small,
+                                              split_large, kpack)
+            ovf_small, ovf_large = g_small.any_overflow(), g.any_overflow()
+            out.update(split_large=split_large, octree_large=octree_large,
+                       graph=g, overflow_small=ovf_small,
+                       overflow_large=ovf_large,
+                       overflow=ovf_small | ovf_large)
+            if self.stage_flag == "hr":
+                return out
+            lap("feature")
+            code = self.sample_stage(
+                g, self.code_depth, m.embed_dim, "feature", batch_size,
+                label, steps, feature_noise, generator)
+            lap("decode")
+            dec = self.vae.decode_grow(code, g)
+            out.update(code=code, decode_out=dec)
+            if not compute_sdf:
+                return out
+            lap("sdf")
+            out["sdfs"] = sdf_utils.calc_sdf(
+                dec["reg_voxs"][m.depth_out], dec["octree_out"],
+                m.full_depth, m.depth_out,
+                size=resolution or self.cfg.solver.resolution,
+                bbmin=-self.cfg.solver.sdf_scale,
+                bbmax=self.cfg.solver.sdf_scale,
+            )
+            if mesh:
+                lap("marching")
+                out["meshes"] = [mesh_utils.marching_tetrahedra(s)
+                                 for s in out["sdfs"]]
         return out

@@ -36,6 +36,7 @@ from ..octree import split_codec
 from ..octree.dual_graph import build_dual_graph, with_packed_levels
 from ..utils import mesh as mesh_utils
 from ..utils import sdf as sdf_utils
+from ..utils import trace
 from ..utils.device import resolve_device, use_fp32_math
 from .common import Laps, batch_to_graph, batch_to_octree, code_shape
 
@@ -73,13 +74,16 @@ class UnionSolver:
             num_heads=d.num_heads, num_classes=d.num_classes,
             compute_dtype=d.compute_dtype,
         )
-        self.df = UNetUnion(self.union_cfg, stage_flag).to(self.device).eval()
-        self.vae = GraphVAE(
-            depth=m.depth, channel_in=m.channel_in, full_depth=m.full_depth,
-            depth_stop=m.depth_stop, depth_out=m.depth_out,
-            embed_dim=m.embed_dim, resblk_num=m.resblk_num,
-            channels=tuple(m.channels), use_checkpoint=m.use_checkpoint,
-        ).to(self.device).eval()
+        with trace.span("octf.setup.solver"):
+            self.df = UNetUnion(self.union_cfg,
+                                stage_flag).to(self.device).eval()
+            self.vae = GraphVAE(
+                depth=m.depth, channel_in=m.channel_in,
+                full_depth=m.full_depth, depth_stop=m.depth_stop,
+                depth_out=m.depth_out, embed_dim=m.embed_dim,
+                resblk_num=m.resblk_num, channels=tuple(m.channels),
+                use_checkpoint=m.use_checkpoint,
+            ).to(self.device).eval()
         if "hr" in d.unet_type and "feature" not in d.unet_type:
             # (the 3-stage model's hr stage denoises split_large instead)
             i = d.unet_type.index("hr")
@@ -131,6 +135,7 @@ class UnionSolver:
         that much; ``times`` / ``noise`` (NDHWC) as in
         ``sampler.diffusion_loss``; ``lap`` as in :meth:`loss_fn`."""
         lap = lap or (lambda name: None)
+        lap("graph")
         octree = None
         if "split_small" in batch:
             split = batch["split_small"].to(self.device, torch.float32)
@@ -138,7 +143,7 @@ class UnionSolver:
             octree = batch_to_octree(batch["points"], batch["normals"],
                                      self.spec1)
             split = split_codec.octree2split_small(octree)
-        lap("graph")
+        lap("forward_backward")
         pw = self.cfg.diffusion.lr_pos_weight
         elem_w = (torch.where(split > 0, pw, 1.0) if pw != 1.0 else None)
         loss = sampler.diffusion_loss(
@@ -157,8 +162,9 @@ class UnionSolver:
         stage (the lr stage: :meth:`lr_loss`, whose ``overflow`` is absent
         with a precomputed ``split_small``).  The random draws (the hr
         encoder's ``eps``, then the loss's ``times`` and ``noise``) come
-        from ``generator`` unless given; ``lap(name)``, if given, is called
-        after the graph build and after the encode."""
+        from ``generator`` unless given; ``lap(name)`` (a :class:`Laps`),
+        if given, begins each stage: graph, encode (hr), forward_backward,
+        which the caller's backward ends."""
         lap = lap or (lambda name: None)
         label = (batch.get("label")
                  if self.union_cfg.num_classes is not None else None)
@@ -167,11 +173,12 @@ class UnionSolver:
         if self.stage_flag != "hr":
             raise NotImplementedError(
                 f"stage {self.stage_flag!r} does not train in the port")
-        g = self.batch_graph(batch)
         lap("graph")
+        g = self.batch_graph(batch)
+        lap("encode")
         with torch.no_grad():   # the frozen VAE's codes are the target
             code = self.vae.extract_code(g, eps=eps, generator=generator)
-        lap("encode")
+        lap("forward_backward")
         loss = self.hr_loss(g, code, label, times, noise, generator)
         return loss, {"loss": loss.detach(),
                       "overflow": g.any_overflow().to(torch.float32)}
@@ -281,38 +288,40 @@ class UnionSolver:
         if kpack is None:
             kpack = use_kpack()
         self.df.eval()
-        lap = Laps(self.device)
-        split_small = self.sample_lr(
-            batch_size, label=label, steps=steps, noise_stream=lr_noise,
-            generator=generator)
-        lap("lr")
-        octree_small, g_small = self._grow_fn(batch_size, kpack)(split_small)
-        lap("grow")
-        out = {"split_small": split_small, "octree_small": octree_small,
-               "seconds": lap.seconds}
-        if self.stage_flag == "lr":
-            return out
-        code = self.sample_hr(g_small, batch_size, label=label, steps=steps,
-                              noise_stream=hr_noise, generator=generator)
-        lap("hr")
-        dec = self.vae.decode_grow(code, g_small)
-        lap("decode")
-        out.update(code=code, decode_out=dec, graph=g_small,
-                   overflow=g_small.any_overflow())
-        if not compute_sdf:
-            return out
-        out["sdfs"] = sdf_utils.calc_sdf(
-            dec["reg_voxs"][m.depth_out], dec["octree_out"],
-            m.full_depth, m.depth_out,
-            size=resolution or self.cfg.solver.resolution,
-            bbmin=-self.cfg.solver.sdf_scale,
-            bbmax=self.cfg.solver.sdf_scale,
-        )
-        lap("sdf")
-        if mesh:
-            out["meshes"] = [mesh_utils.marching_tetrahedra(s)
-                             for s in out["sdfs"]]
-            lap("marching")
+        with Laps(self.device, "sample") as lap:
+            lap("lr")
+            split_small = self.sample_lr(
+                batch_size, label=label, steps=steps, noise_stream=lr_noise,
+                generator=generator)
+            lap("grow")
+            octree_small, g_small = self._grow_fn(batch_size,
+                                                  kpack)(split_small)
+            out = {"split_small": split_small, "octree_small": octree_small,
+                   "seconds": lap.seconds}
+            if self.stage_flag == "lr":
+                return out
+            lap("hr")
+            code = self.sample_hr(g_small, batch_size, label=label,
+                                  steps=steps, noise_stream=hr_noise,
+                                  generator=generator)
+            lap("decode")
+            dec = self.vae.decode_grow(code, g_small)
+            out.update(code=code, decode_out=dec, graph=g_small,
+                       overflow=g_small.any_overflow())
+            if not compute_sdf:
+                return out
+            lap("sdf")
+            out["sdfs"] = sdf_utils.calc_sdf(
+                dec["reg_voxs"][m.depth_out], dec["octree_out"],
+                m.full_depth, m.depth_out,
+                size=resolution or self.cfg.solver.resolution,
+                bbmin=-self.cfg.solver.sdf_scale,
+                bbmax=self.cfg.solver.sdf_scale,
+            )
+            if mesh:
+                lap("marching")
+                out["meshes"] = [mesh_utils.marching_tetrahedra(s)
+                                 for s in out["sdfs"]]
         return out
 
 
@@ -404,16 +413,16 @@ class TrainStep:
         lr stage has no "overflow" with a precomputed split); with
         ``timed`` also "seconds" of the stages graph / encode (hr) /
         forward_backward / optimizer_ema (the device is synchronised at
-        each stage end)."""
+        each stage end).  The stages are tracing spans ``octf.train.*``
+        either way; without ``timed`` nothing waits for the device."""
         s = self.solver
         s.df.train()
-        lap = Laps(s.device) if timed else (lambda name: None)
-        self.optimizer.zero_grad(set_to_none=True)
-        loss, out = s.loss_fn(batch, times, noise, eps, generator, lap)
-        loss.backward()
-        lap("forward_backward")
-        self.apply_gradients()
-        lap("optimizer_ema")
+        with Laps(s.device, "train", sync=timed) as lap:
+            self.optimizer.zero_grad(set_to_none=True)
+            loss, out = s.loss_fn(batch, times, noise, eps, generator, lap)
+            loss.backward()
+            lap("optimizer_ema")
+            self.apply_gradients()
         if timed:
             out["seconds"] = lap.seconds
         return out

@@ -26,6 +26,7 @@ from ..nn import losses
 from ..nn.vae import GraphVAE, copy_topology_octree
 from ..octree.dual_graph import build_dual_graph
 from ..utils import sdf as sdf_utils
+from ..utils import trace
 from ..utils.device import resolve_device, use_fp32_math
 from .common import Laps, batch_to_graph, code_shape, flatten_pos
 
@@ -42,13 +43,15 @@ class VAESolver:
         self.device = resolve_device(device)
         use_fp32_math()
         m = cfg.model
-        self.vae = GraphVAE(
-            depth=m.depth, channel_in=m.channel_in, full_depth=m.full_depth,
-            depth_stop=m.depth_stop, depth_out=m.depth_out,
-            embed_dim=m.embed_dim, resblk_num=m.resblk_num,
-            channels=tuple(m.channels), use_checkpoint=m.use_checkpoint,
-            color_channel=3 if self.use_color else 0,
-        ).to(self.device)
+        with trace.span("octf.setup.solver"):
+            self.vae = GraphVAE(
+                depth=m.depth, channel_in=m.channel_in,
+                full_depth=m.full_depth, depth_stop=m.depth_stop,
+                depth_out=m.depth_out, embed_dim=m.embed_dim,
+                resblk_num=m.resblk_num, channels=tuple(m.channels),
+                use_checkpoint=m.use_checkpoint,
+                color_channel=3 if self.use_color else 0,
+            ).to(self.device)
         self.spec1 = cfg.capacity.octree_spec(m.depth, m.full_depth, 1)
         self.edge_factor = cfg.capacity.edge_factor
 
@@ -81,14 +84,15 @@ class VAESolver:
         ``pos`` [B, M, 3], ``sdf`` [B, M], ``grad`` [B, M, 3] (and, for the
         colour VAE, ``point_colors`` [B, N, 3]).  The
         posterior's ``eps`` comes from ``generator`` unless given;
-        ``lap(name)``, if given, is called after the graph build and after
-        the loss."""
+        ``lap(name)`` (a ``Laps``), if given, begins the stages graph and
+        forward."""
         lap = lap or (lambda name: None)
         m = self.cfg.model
+        lap("graph")
         _, g = batch_to_graph(batch["points"], batch["normals"], self.spec1,
                               self.edge_factor,
                               features=self._features(batch))
-        lap("graph")
+        lap("forward")
         out = self.vae(g, g, eps=eps, generator=generator)
         pos, pb = flatten_pos(batch["pos"])
         sdf_gt, grad_gt = batch["sdf"].reshape(-1), batch["grad"].reshape(-1, 3)
@@ -107,7 +111,6 @@ class VAESolver:
                 m.depth_out, spatial_grad=self.cfg.loss.spatial_grad, **kw)
         # a capacity overflow dropped nodes or edges: the caller must see it
         ld["overflow"] = g.any_overflow().to(torch.float32)
-        lap("forward")
         return ld["loss"], ld
 
     def code_shape(self, batch_size: int):
@@ -134,27 +137,28 @@ class VAESolver:
         m = self.cfg.model
         s = self.cfg.solver
         self.vae.eval()
-        lap = Laps(self.device)
-        octree, g = batch_to_graph(batch["points"], batch["normals"],
-                                   self.spec1, self.edge_factor,
-                                   features=self._features(batch))
-        lap("graph")
-        mean, _ = self.vae.encode(g)
-        lap("encode")
-        g_small = build_dual_graph(copy_topology_octree(octree, m.depth_stop),
-                                   self.edge_factor, up_to=m.depth_stop)
-        out = self.vae.decode_grow(mean, g_small)
-        lap("decode")
-        sdfs = sdf_utils.calc_sdf(
-            out["reg_voxs"][m.depth_out], out["octree_out"], m.full_depth,
-            m.depth_out, size=resolution or s.resolution,
-            bbmin=-s.sdf_scale, bbmax=s.sdf_scale)
-        lap("sdf")
-        if save_paths is not None:
-            sdf_utils.export_meshes(
-                sdfs, save_paths, bbmin=-s.sdf_scale, bbmax=s.sdf_scale,
-                mesh_scale=self.cfg.data_test.point_scale)
-            lap("mesh")
+        with Laps(self.device, "sample") as lap:
+            lap("graph")
+            octree, g = batch_to_graph(batch["points"], batch["normals"],
+                                       self.spec1, self.edge_factor,
+                                       features=self._features(batch))
+            lap("encode")
+            mean, _ = self.vae.encode(g)
+            lap("decode")
+            g_small = build_dual_graph(
+                copy_topology_octree(octree, m.depth_stop),
+                self.edge_factor, up_to=m.depth_stop)
+            out = self.vae.decode_grow(mean, g_small)
+            lap("sdf")
+            sdfs = sdf_utils.calc_sdf(
+                out["reg_voxs"][m.depth_out], out["octree_out"],
+                m.full_depth, m.depth_out, size=resolution or s.resolution,
+                bbmin=-s.sdf_scale, bbmax=s.sdf_scale)
+            if save_paths is not None:
+                lap("mesh")
+                sdf_utils.export_meshes(
+                    sdfs, save_paths, bbmin=-s.sdf_scale, bbmax=s.sdf_scale,
+                    mesh_scale=self.cfg.data_test.point_scale)
         out["seconds"] = lap.seconds
         return sdfs, out
 
@@ -201,16 +205,18 @@ class VAETrainStep:
                  timed: bool = False) -> Dict:
         """-> the loss dict, detached (device scalars); with ``timed`` also
         "seconds" of the stages graph / forward / backward / optimizer (the
-        device is synchronised at each stage end)."""
+        device is synchronised at each stage end).  The stages are tracing
+        spans ``octf.train.*`` either way; without ``timed`` nothing waits
+        for the device."""
         s = self.solver
         s.vae.train()
-        lap = Laps(s.device) if timed else (lambda name: None)
-        self.optimizer.zero_grad(set_to_none=True)
-        loss, ld = s.loss_fn(batch, eps, generator, lap)
-        loss.backward()
-        lap("backward")
-        self.apply_gradients()
-        lap("optimizer")
+        with Laps(s.device, "train", sync=timed) as lap:
+            self.optimizer.zero_grad(set_to_none=True)
+            loss, ld = s.loss_fn(batch, eps, generator, lap)
+            lap("backward")
+            loss.backward()
+            lap("optimizer")
+            self.apply_gradients()
         out = {k: v.detach() if isinstance(v, torch.Tensor) else v
                for k, v in ld.items()}
         if timed:

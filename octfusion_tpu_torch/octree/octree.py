@@ -27,6 +27,7 @@ from typing import List, Optional, Sequence, Tuple
 
 import torch
 
+from ..utils import trace
 from . import morton
 from .morton import INVALID_KEY
 
@@ -177,7 +178,8 @@ class Octree:
             (self.batch_size * size**3, data.shape[-1]),
             dtype=data.dtype, device=data.device,
         )
-        grid = set_where(grid, flat, data, self.node_mask(d))
+        with trace.span("octf.gather.move"):
+            grid = set_where(grid, flat, data, self.node_mask(d))
         return grid.view(self.batch_size, size, size, size, -1)
 
     def from_voxel(self, grid: torch.Tensor, d: int) -> torch.Tensor:
@@ -185,8 +187,9 @@ class Octree:
         s = 2**d - 1
         x, y, z, b = self.xyzb(d)
         m = self.node_mask(d)
-        vals = grid[b.clamp(0, self.batch_size - 1), x.clamp(0, s),
-                    y.clamp(0, s), z.clamp(0, s)]
+        with trace.span("octf.gather.move"):
+            vals = grid[b.clamp(0, self.batch_size - 1), x.clamp(0, s),
+                        y.clamp(0, s), z.clamp(0, s)]
         return torch.where(m[:, None], vals, torch.zeros_like(vals))
 
     def pad_nempty(self, data: torch.Tensor, d: int) -> torch.Tensor:

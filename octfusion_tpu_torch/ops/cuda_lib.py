@@ -17,6 +17,8 @@ import subprocess
 
 import torch
 
+from ..utils import trace
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
@@ -55,7 +57,8 @@ def build(source: str) -> str:
 def load(source: str, signatures) -> ctypes.CDLL:
     """Build ``source`` and load it; ``signatures`` maps each C entry
     point to its argument types (each returns a CUDA error code)."""
-    lib = ctypes.CDLL(build(source))
+    with trace.span("octf.setup.kernels"):
+        lib = ctypes.CDLL(build(source))
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes

@@ -19,6 +19,7 @@ import torch.nn.functional as F
 
 from ..octree.dual_graph import DualGraph, GraphLevel
 from ..octree.octree import set_where
+from ..utils import trace
 from . import graph_conv_cuda
 
 
@@ -74,9 +75,10 @@ def dual_group_norm(
     ex2 = group_adjust(sums[:, c:]) * inv_count
     var = torch.clamp(ex2 - mean * mean, min=0.0)
     bidc = lvl.node_batch.clamp(0, bsz - 1)
-    out = xf - mean[bidc]
-    out = torch.where(mask[:, None], out, torch.zeros_like(out))
-    out = out * torch.rsqrt(var + eps)[bidc]
+    with trace.span("octf.gather.norm"):
+        out = xf - mean[bidc]
+        out = torch.where(mask[:, None], out, torch.zeros_like(out))
+        out = out * torch.rsqrt(var + eps)[bidc]
     out = out * scale.reshape(1, c) + bias.reshape(1, c)
     out = torch.where(mask[:, None], out, torch.zeros_like(out))
     return out.to(x.dtype)
@@ -86,7 +88,8 @@ def add_batch_embedding(
     x: torch.Tensor, emb: torch.Tensor, lvl: GraphLevel
 ) -> torch.Tensor:
     """x[i] += emb[batch(i)] on valid vertices."""
-    gathered = emb[lvl.node_batch.clamp(0, emb.shape[0] - 1)]
+    with trace.span("octf.gather.embed"):
+        gathered = emb[lvl.node_batch.clamp(0, emb.shape[0] - 1)]
     gathered = torch.where(lvl.node_mask[:, None], gathered,
                            torch.zeros_like(gathered))
     return x + gathered.to(x.dtype)
@@ -118,8 +121,9 @@ def downsample_splice(
     leaf_rank = g.leaf_rank[d - 1 - fd]
     leaf_off = spec.leaf_off(d, d - 1)
     is_leaf = (child < 0) & o.node_mask(d - 1)
-    leaf_feats = x[leaf_off + leaf_rank.clamp(0, cap_prev - 1)]
-    par_feats = parents[child.clamp(0, parents.shape[0] - 1)]
+    with trace.span("octf.gather.move"):
+        leaf_feats = x[leaf_off + leaf_rank.clamp(0, cap_prev - 1)]
+        par_feats = parents[child.clamp(0, parents.shape[0] - 1)]
     new_cur = torch.where(
         is_leaf[:, None], leaf_feats,
         torch.where((child >= 0)[:, None], par_feats,
@@ -146,12 +150,14 @@ def upsample_splice(
 
     leaf_pos = g.leaf_pos[d - 1 - fd]
     k_ok = ar < g.lnum[d - 1]
-    leaf_seg = cur[leaf_pos.clamp(0, cap_prev - 1)]
+    with trace.span("octf.gather.move"):
+        leaf_seg = cur[leaf_pos.clamp(0, cap_prev - 1)]
     leaf_seg = torch.where(k_ok[:, None], leaf_seg, torch.zeros_like(leaf_seg))
 
     ne_pos = o.nonempty_position(d - 1)
     k2_ok = ar < o.nnum_nempty[d - 1]
-    ne_feats = cur[ne_pos]
+    with trace.span("octf.gather.move"):
+        ne_feats = cur[ne_pos]
     ne_feats = torch.where(k2_ok[:, None], ne_feats, torch.zeros_like(ne_feats))
     ne_feats = ne_feats[: spec.ospec.node_caps[d] // 8]
     children = up_fn(ne_feats)
@@ -178,10 +184,12 @@ def graph_to_level_arrays(x: torch.Tensor, g: DualGraph, d: int):
         cap = spec.ospec.node_caps[dd]
         off = spec.leaf_off(d, dd)
         k_ok = torch.arange(cap, device=x.device) < g.lnum[dd]
-        out[dd] = set_where(
-            torch.zeros((cap, x.shape[1]), dtype=x.dtype, device=x.device),
-            g.leaf_pos[dd - fd], x[off: off + cap], k_ok,
-        )
+        with trace.span("octf.gather.move"):
+            out[dd] = set_where(
+                torch.zeros((cap, x.shape[1]), dtype=x.dtype,
+                            device=x.device),
+                g.leaf_pos[dd - fd], x[off: off + cap], k_ok,
+            )
     cur = _cur_segment(x, g, d)
     out[d] = torch.where(g.octree.node_mask(d)[:, None], cur,
                          torch.zeros_like(cur))

@@ -28,6 +28,7 @@ import torch
 
 from ..octree import morton
 from ..octree.octree import Octree
+from ..utils import trace
 
 # corner offsets, x-major
 _CORNERS = ((0, 0, 0), (0, 0, 1), (0, 1, 0), (0, 1, 1),
@@ -115,7 +116,8 @@ def _level_terms(octree, dd, depth_end, pos, pt_batch, reg_levels,
     idx_c = idx.clamp(0, octree.spec.node_caps[dd] - 1)
     use = valid if dd == depth_end else (
         valid & (octree.child[dd][idx_c] < 0))
-    reg = reg_levels[dd][idx_c.reshape(-1)].reshape(pos.shape[0], 8, 4)
+    with trace.span("octf.gather.mpu"):
+        reg = reg_levels[dd][idx_c.reshape(-1)].reshape(pos.shape[0], 8, 4)
     fval = torch.sum(reg[..., :3] * coordsf, dim=-1) + reg[..., 3]
     return coordsf, w, use, valid, reg, fval
 
@@ -215,7 +217,8 @@ def mpu_interp(pos: torch.Tensor, pt_batch: torch.Tensor,
         idx_c = idx.clamp(0, octree.spec.node_caps[dd] - 1)
         use = valid if dd == depth_end else (
             valid & (octree.child[dd][idx_c] < 0))
-        vals = val_levels[dd][idx_c.reshape(-1)].reshape(n, 8, c)
+        with trace.span("octf.gather.mpu"):
+            vals = val_levels[dd][idx_c.reshape(-1)].reshape(n, 8, c)
         wm = torch.where(use, w, torch.zeros_like(w))
         num = num + torch.sum(wm[..., None] * vals, dim=1)
         den = den + torch.sum(wm, dim=-1)

@@ -31,13 +31,13 @@ memory.  The JAX package's compact active-cell transfer is not ported."""
 
 from __future__ import annotations
 
-import time
 from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 import torch.distributed as tdist
 
+from ..models.common import Laps
 from ..models.union_solver import TrainStep
 from ..models.vae_solver import VAETrainStep
 from . import dist
@@ -127,10 +127,10 @@ class GradSync:
                            else torch.zeros_like(p)).reshape(-1)
                           for p in keep])
         self._sync(flat)
-        t0 = time.perf_counter()
-        tdist.all_reduce(flat)
-        self._sync(flat)
-        self.seconds.append(time.perf_counter() - t0)
+        with Laps(flat.device, "train") as laps:
+            laps("allreduce")
+            tdist.all_reduce(flat)
+        self.seconds.append(laps.seconds["allreduce"])
         self.bytes = flat.numel() * flat.element_size()
         flat.div_(world)
         off = 0

@@ -123,6 +123,7 @@ from .parallel.mesh import make_mesh
 from .utils import ckpt as ckpt_lib
 from .utils import params as params_lib
 from .utils import sdf as sdf_utils
+from .utils import trace
 from .utils.device import peak_memory, resolve_device, use_fp32_math
 from .utils.overflow import OverflowMonitor
 from .utils.visualizer import Visualizer
@@ -168,7 +169,9 @@ def parse_args(argv=None):
                         "weighted lr split loss; 1.0 = reference parity)")
     p.add_argument("--profile", type=int, default=0,
                    help="trace N steps with torch.profiler (written to "
-                        "<run_dir>/profile)")
+                        "<run_dir>/profile/trace.json), with the program's "
+                        "own spans on: the stages octf.train.*, the "
+                        "gathers octf.gather.* and the all-reduce")
     p.add_argument("--device", default="cuda",
                    help="'cuda' (default) or 'cpu'")
     return p.parse_args(argv)
@@ -239,7 +242,8 @@ def train_loop(step, batches, n_steps: int, start: int = 0,
     and the stall watchdog is poked; after step ``it``, ``display(it)``
     runs when ``(it + 1) % display_freq == 0`` and ``save(it + 1)`` when
     ``(it + 1) % save_freq == 0``.  ``profile`` > 0 traces steps
-    ``start + 1 .. start + profile`` into ``profile_dir``.  The monitor
+    ``start + 1 .. start + profile`` into ``profile_dir``, with the
+    program's spans (``utils/trace``) on while it records.  The monitor
     checks again at the end.  -> {"step_s": wall seconds of each step
     (the device synchronised at its end), "data_s": seconds of each step
     spent waiting on ``batches``, "loss": each step's loss, "last": the
@@ -295,11 +299,13 @@ def _profiler(device):
     acts = [torch.profiler.ProfilerActivity.CPU]
     if device.type == "cuda":
         acts.append(torch.profiler.ProfilerActivity.CUDA)
+    trace.enable()
     return torch.profiler.profile(activities=acts)
 
 
 def _stop_profiler(prof, profile_dir) -> None:
     prof.stop()
+    trace.disable()
     os.makedirs(profile_dir, exist_ok=True)
     path = os.path.join(profile_dir, "trace.json")
     prof.export_chrome_trace(path)

@@ -256,8 +256,8 @@ def test_cli_trains_every_stage_and_generates(tmp_path, capsys):
 
     _cli(root, "--model", "union", "--stage", "lr", "--name", "lr",
          "--max_steps", "2", "--profile", "1")
-    assert os.path.getsize(os.path.join(root, "lr", "profile",
-                                        "trace.json")) > 0
+    with open(os.path.join(root, "lr", "profile", "trace.json")) as fh:
+        assert '"octf.train.forward_backward"' in fh.read()
     lr_ckpt = ckpt_lib.restore(os.path.join(root, "lr", "ckpt",
                                             "steps-latest"))
     assert sorted(lr_ckpt) == ["df_unet_lr", "ema_df_unet_lr", "train_state"]
