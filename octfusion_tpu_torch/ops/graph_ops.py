@@ -8,6 +8,10 @@
   (``dual_graph.with_packed_levels``) takes the forward-only K5 instead;
 * ``dual_group_norm`` — per-sample statistics over valid vertices with the
   reference's ``1/(count + eps)`` and ``var = E[x²] - mean²`` conventions;
+* ``add_batch_embedding`` — a per-sample row added to each valid vertex;
+  both broadcast a [B, C] table onto the vertex rows, and where autograd
+  records, that broadcast's backward is one one-hot GEMM
+  (``_BatchBroadcast``) rather than ``index``'s serial scatter;
 * ``downsample_splice`` / ``upsample_splice`` — the leaf-preserving level
   moves, as static-segment gathers.
 """
@@ -16,6 +20,7 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
 
 from ..octree.dual_graph import DualGraph, GraphLevel
 from ..octree.octree import set_where
@@ -43,6 +48,52 @@ def graph_conv(
     return graph_conv_cuda.GraphConvFunction.apply(x, w, lvl)
 
 
+def _batch_onehot(idx: torch.Tensor, mask: torch.Tensor,
+                  n: int) -> torch.Tensor:
+    """[G, n] fp32 indicator of vertex row -> sample, zero on padding."""
+    return ((idx[:, None] == torch.arange(n, device=idx.device)[None])
+            & mask[:, None]).to(torch.float32)
+
+
+class _BatchBroadcast(torch.autograd.Function):
+    """``t[idx]``: a per-sample table t [n, C] onto a level's G vertex rows
+    by ``idx``, the level's ``node_batch`` clamped to [0, n).  Its backward
+    is one GEMM, ``onehot^T @ grad`` in fp32 (rounded to t's dtype at the
+    end), where ``index``'s backward sorts the G indices and adds each run
+    of equal ones serially: there are only n distinct ones.  Padding rows
+    are out of the one-hot; every caller zeroes them after the gather.
+    Only the level is kept for the backward (a graph constant, like
+    ``GraphConvFunction``'s), so a checkpointed block stores nothing more."""
+
+    # backward calls since the last reset
+    backward_calls = 0
+
+    @staticmethod
+    def forward(ctx, t, idx, lvl):
+        ctx.lvl = lvl
+        ctx.table = (t.shape[0], t.dtype)
+        return t[idx]
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, grad):
+        _BatchBroadcast.backward_calls += 1
+        n, dtype = ctx.table
+        lvl = ctx.lvl
+        onehot = _batch_onehot(lvl.node_batch.clamp(0, n - 1),
+                               lvl.node_mask, n)
+        return (onehot.t() @ grad.to(torch.float32)).to(dtype), None, None
+
+
+def _batch_broadcast(t: torch.Tensor, idx: torch.Tensor,
+                     lvl: GraphLevel) -> torch.Tensor:
+    """``t[idx]`` (see ``_BatchBroadcast``); a table that autograd does not
+    track takes the plain gather, so inference launches what it did."""
+    if torch.is_grad_enabled() and t.requires_grad:
+        return _BatchBroadcast.apply(t, idx, lvl)
+    return t[idx]
+
+
 def dual_group_norm(
     x: torch.Tensor,
     lvl: GraphLevel,
@@ -57,10 +108,7 @@ def dual_group_norm(
     cpg = c // group
     xf = x.to(torch.float32)
     mask = lvl.node_mask
-    onehot = (
-        (lvl.node_batch[:, None] == torch.arange(bsz, device=x.device)[None])
-        & mask[:, None]
-    ).to(torch.float32)                                  # [G, B]
+    onehot = _batch_onehot(lvl.node_batch, mask, bsz)    # [G, B]
     count = onehot.sum(0)[:, None] * cpg
     inv_count = 1.0 / (count + eps)
 
@@ -76,9 +124,9 @@ def dual_group_norm(
     var = torch.clamp(ex2 - mean * mean, min=0.0)
     bidc = lvl.node_batch.clamp(0, bsz - 1)
     with trace.span("octf.gather.norm"):
-        out = xf - mean[bidc]
+        out = xf - _batch_broadcast(mean, bidc, lvl)
         out = torch.where(mask[:, None], out, torch.zeros_like(out))
-        out = out * torch.rsqrt(var + eps)[bidc]
+        out = out * _batch_broadcast(torch.rsqrt(var + eps), bidc, lvl)
     out = out * scale.reshape(1, c) + bias.reshape(1, c)
     out = torch.where(mask[:, None], out, torch.zeros_like(out))
     return out.to(x.dtype)
@@ -89,7 +137,8 @@ def add_batch_embedding(
 ) -> torch.Tensor:
     """x[i] += emb[batch(i)] on valid vertices."""
     with trace.span("octf.gather.embed"):
-        gathered = emb[lvl.node_batch.clamp(0, emb.shape[0] - 1)]
+        gathered = _batch_broadcast(
+            emb, lvl.node_batch.clamp(0, emb.shape[0] - 1), lvl)
     gathered = torch.where(lvl.node_mask[:, None], gathered,
                            torch.zeros_like(gathered))
     return x + gathered.to(x.dtype)

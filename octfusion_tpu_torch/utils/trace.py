@@ -130,13 +130,15 @@ def span(name: str):
 def _counters() -> Dict:
     """The counters the port keeps where it counts, read there."""
     from ..nn.modules import GraphConv
-    from ..ops import chamfer_cuda, graph_conv_cuda
+    from ..ops import chamfer_cuda, graph_conv_cuda, graph_ops
 
     fn = graph_conv_cuda.GraphConvFunction
     return {"graph_conv.calls": GraphConv.calls,
             "graph_conv.calls_bf16": GraphConv.calls_bf16,
             "graph_conv.backward_calls": fn.backward_calls,
             "graph_conv.backward_calls_bf16": fn.backward_calls_bf16,
+            "graph_ops.batch_broadcast.backward_calls":
+                graph_ops._BatchBroadcast.backward_calls,
             "graph_conv_cuda.launches": dict(graph_conv_cuda.launches),
             "chamfer_cuda.launches": dict(chamfer_cuda.launches)}
 
@@ -146,7 +148,8 @@ def snapshot() -> Dict:
     {name: {"count", "host_s"}}}, "counters": ...}``: the spans recorded
     since the last :func:`reset`, in all and within their innermost
     enclosing stage span, and the counters the port keeps where it
-    counts (graph-conv calls and backward calls, kernel launches)."""
+    counts (graph-conv calls and backward calls, the per-sample broadcasts'
+    one-hot backward calls, kernel launches)."""
     spans: Dict[str, Dict] = {}
     by_stage: Dict[str, Dict] = {}
     with _lock:

@@ -3,7 +3,8 @@ versions: the graph conv's K1 forward, K2 column buffer, K3 input
 gradient and K5 packed forward (all four also on the edge-case level of
 ``test_torch_port_csr_cases`` and at ragged widths; K5 with its autograd
 guard; K2 also on an x that is not 16-byte aligned), the
-differentiable graph conv on the card, the Chamfer kernel K4 with the
+differentiable graph conv on the card, the per-sample broadcasts'
+one-hot GEMM backward against ``index``'s, the Chamfer kernel K4 with the
 evaluation's tile loop, and the solver's fp32 precision (the lr denoise
 step, card against CPU); K1 / K2 / K3 at the VAE's odd input widths on
 its depth-8 training graph; the VAE and lr train steps card against CPU
@@ -48,15 +49,15 @@ def cuda():
     return torch.device("cuda")
 
 
-def _graph(device, seed=0, depth=8, full_depth=4):
-    """Depth-6 graph at the default config's caps (G = 4096, 8192, 16384)
-    from a random split grid sparse enough to fit them."""
+def _graph(device, seed=0, depth=8, full_depth=4, batch=1):
+    """Depth-6 graph at the default config's caps (G = 4096, 8192, 16384
+    a sample) from a random split grid sparse enough to fit them."""
     rng = np.random.RandomState(seed)
     s = 2**full_depth
     split = torch.tensor(
-        np.where(rng.rand(1, s, s, s, 8) < 0.012, 1.0, -1.0).astype(np.float32),
-        device=device)
-    spec = OctreeSpec.create(depth, full_depth, 1,
+        np.where(rng.rand(batch, s, s, s, 8) < 0.012, 1.0, -1.0).astype(
+            np.float32), device=device)
+    spec = OctreeSpec.create(depth, full_depth, batch,
                              finest_cap_per_sample=131072, decay=4.0)
     return build_dual_graph(split2octree_small(split, spec), 9,
                             up_to=full_depth + 2)
@@ -256,6 +257,56 @@ def test_packed_level_dispatch_and_autograd_guard(cuda):
         graph_conv_cuda.graph_conv_packed(x.to(cuda), wg, *lvl.csr())
     assert graph_conv_cuda.launches["graph_conv_fwd_packed"] == \
         n0["graph_conv_fwd_packed"] + 1
+
+
+def _broadcast_case(op, lvl, gen):
+    """(f(*params), params) of one per-sample broadcast at C = 128."""
+    b, c, cuda = lvl.spec.ospec.batch_size, 128, lvl.node_mask.device
+    x = torch.randn(lvl.g_cap, c, device=cuda, generator=gen) * 3 + 1
+    table = torch.randn(b, c, device=cuda, generator=gen)
+    if op == "gather":
+        idx = lvl.node_batch.clamp(0, b - 1)
+        return (lambda t: torch.where(
+            lvl.node_mask[:, None], graph_ops._batch_broadcast(t, idx, lvl),
+            0.0)), [table]
+    if op == "group_norm":
+        return (lambda x, s, bias: graph_ops.dual_group_norm(
+            x, lvl, s, bias, 32)), [x, 1 + 0.1 * table[0], table[1]]
+    return (lambda x, e: graph_ops.add_batch_embedding(x, e, lvl)), [x, table]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", ["gather", "group_norm", "embedding"])
+def test_batch_broadcast_backward_matches_index(cuda, op, monkeypatch):
+    """The per-sample broadcasts' one-hot GEMM backward at published widths
+    (C = 128, B = 4, the depth-6 level of a seeded snet-size graph) against
+    PyTorch's own ``index`` autograd of the same gather: equal within fp32
+    rounding, and two runs equal bit for bit."""
+    lvl = _graph(cuda, seed=11, batch=4).level(6)
+    assert not bool(lvl.node_mask.all())
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    f, params = _broadcast_case(op, lvl, gen)
+    ct = torch.randn(lvl.g_cap, 128, device=cuda, generator=gen)
+
+    def grads():
+        ps = [p.detach().clone().requires_grad_() for p in params]
+        (f(*ps) * ct).sum().backward()
+        return [p.grad for p in ps]
+
+    n0 = graph_ops._BatchBroadcast.backward_calls
+    got, again = grads(), grads()
+    assert graph_ops._BatchBroadcast.backward_calls - n0 == 2 * (
+        2 if op == "group_norm" else 1)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    monkeypatch.setattr(graph_ops, "_batch_broadcast",
+                        lambda t, idx, lvl: t[idx])
+    ref = grads()
+    assert graph_ops._BatchBroadcast.backward_calls - n0 == 2 * (
+        2 if op == "group_norm" else 1)
+    for a, r in zip(got, ref):
+        torch.testing.assert_close(a, r, rtol=TOL,
+                                   atol=TOL * r.abs().max().item())
 
 
 # K4: fp32 clouds in the unit cube, the kernel's expansion (products on

@@ -10,7 +10,10 @@ on the tiny configuration, on the CPU:
 * under a CPU ``torch.profiler``, every ``Index*Backward`` node of an hr
   train step (with checkpointed blocks) has its forward under an
   ``octf.gather.*`` span, and no ``octf.*`` span opens inside a graph
-  conv's call or inside autograd's backward.
+  conv's call or inside autograd's backward;
+* the counter of the per-sample broadcasts' one-hot backward
+  (``graph_ops.batch_broadcast.backward_calls``) rises in a train step
+  and stays put while sampling.
 """
 
 import os
@@ -31,6 +34,7 @@ TINY_YAML = os.path.join(REPO, "configs", "synthetic_tiny.yaml")
 STEPS = 2
 NODE = "autograd::engine::evaluate_function: "
 INDEX_BWD = re.compile(r"evaluate_function: Index\w*Backward")
+BCAST = "graph_ops.batch_broadcast.backward_calls"
 
 
 @pytest.fixture(autouse=True)
@@ -75,6 +79,7 @@ def test_off_records_nothing(solver, monkeypatch):
 
 
 def test_on_and_off_sample_alike(solver):
+    n0 = trace.snapshot()["counters"][BCAST]
     off, off_t = _sample(solver)
     trace.enable()
     on, on_t = _sample(solver)
@@ -91,6 +96,7 @@ def test_on_and_off_sample_alike(solver):
     assert {f"octf.sample.{k}" for k in on["seconds"]} <= set(snap["spans"])
     assert snap["spans"]["octf.gather.norm"]["count"] > 0
     assert snap["counters"]["graph_conv.calls"] == GraphConv.calls
+    assert snap["counters"][BCAST] == n0
 
 
 def test_laps_sync_points(monkeypatch):
@@ -140,11 +146,13 @@ def test_gather_backward_maps_to_spans():
                for h in (m.register_forward_pre_hook(pre),
                          m.register_forward_hook(post))]
     trace.enable()
+    n0 = trace.snapshot()["counters"][BCAST]
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
         step(batch, generator=gen)
     for h in handles:
         h.remove()
+    assert trace.snapshot()["counters"][BCAST] > n0
     events = prof.events()
     octf = [e for e in events if e.name.startswith("octf.")]
     assert {"octf.train.graph", "octf.train.encode",
