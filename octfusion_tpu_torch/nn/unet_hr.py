@@ -23,6 +23,10 @@ from .modules import swish, timestep_embedding
 
 
 class UNetHR(nn.Module):
+    # class rows its time embeddings added since import (B a call with a
+    # label; read by utils/trace as unet.label_embeds)
+    label_embeds = 0
+
     def __init__(
         self,
         input_depth: int = 6,
@@ -100,6 +104,7 @@ class UNetHR(nn.Module):
         e = self.time_embed(e)
         if self.label_emb is not None:
             assert label is not None
+            UNetHR.label_embeds += label.shape[0]
             e = e + self.label_emb(label)
         return e
 

@@ -16,10 +16,15 @@ import torch
 from torch import nn
 
 from ..ops import graph_ops
+from ..utils import trace
 from . import modules
 
 
 class UNetLR(nn.Module):
+    # class rows its time embeddings added since import (B a call with a
+    # label; read by utils/trace as unet.label_embeds)
+    label_embeds = 0
+
     def __init__(
         self,
         full_depth: int = 4,
@@ -86,6 +91,7 @@ class UNetLR(nn.Module):
         e = self.time_emb(self.time_pos_emb(timesteps))
         if self.label_emb is not None:
             assert label is not None
+            UNetLR.label_embeds += label.shape[0]
             e = e + self.label_emb(label)
         return e
 
@@ -116,12 +122,13 @@ class UNetLR(nn.Module):
     def forward_as_middle(self, h, g, d, timesteps, label):
         """Graph features of the bottom level (the full_depth voxel level)
         -> voxel body -> gathered back onto the same vertex layout."""
-        octree = g.octree
-        h_cur = graph_ops._cur_segment(h, g, d)
-        grid = octree.to_voxel(h_cur, self.full_depth)      # NDHWC
-        grid = self(grid.permute(0, 4, 1, 2, 3), timesteps, label=label,
-                    as_middle=True)
-        out_cur = octree.from_voxel(grid.permute(0, 2, 3, 4, 1),
-                                    self.full_depth)
-        pad = out_cur.new_zeros((g.spec.cur_off(d), out_cur.shape[-1]))
-        return torch.cat([pad, out_cur], dim=0)
+        with trace.span("octf.unet.lr_middle"):
+            octree = g.octree
+            h_cur = graph_ops._cur_segment(h, g, d)
+            grid = octree.to_voxel(h_cur, self.full_depth)      # NDHWC
+            grid = self(grid.permute(0, 4, 1, 2, 3), timesteps, label=label,
+                        as_middle=True)
+            out_cur = octree.from_voxel(grid.permute(0, 2, 3, 4, 1),
+                                        self.full_depth)
+            pad = out_cur.new_zeros((g.spec.cur_off(d), out_cur.shape[-1]))
+            return torch.cat([pad, out_cur], dim=0)

@@ -32,11 +32,16 @@ Names are ``octf.<layer>.<what>``:
   ``graph_to_level_arrays``, ``Octree.to_voxel`` / ``from_voxel``) and
   ``octf.gather.mpu`` (the MPU's corner gathers);
 * ``octf.setup.solver`` (a solver's modules built on the device) and
-  ``octf.setup.kernels`` (a CUDA library built and loaded).
+  ``octf.setup.kernels`` (a CUDA library built and loaded);
+* ``octf.unet.lr_middle`` around ``UNetLR.forward_as_middle``: the lr
+  U-Net's body as the hr U-Net's middle, once an hr call.
 
 :func:`snapshot` returns the recorded spans with the counters the port
 keeps where it counts (graph-conv calls and backward calls, kernel
-launches), read there; :func:`reset` clears the spans only.
+launches, ``unet.label_embeds``: the class rows the U-Nets' time
+embeddings added, B for each U-Net that embeds a label, so an hr call
+counts B in the hr U-Net and B again in its lr middle), read there;
+:func:`reset` clears the spans only.
 """
 
 from __future__ import annotations
@@ -130,6 +135,8 @@ def span(name: str):
 def _counters() -> Dict:
     """The counters the port keeps where it counts, read there."""
     from ..nn.modules import GraphConv
+    from ..nn.unet_hr import UNetHR
+    from ..nn.unet_lr import UNetLR
     from ..ops import chamfer_cuda, graph_conv_cuda, graph_ops
 
     fn = graph_conv_cuda.GraphConvFunction
@@ -140,7 +147,8 @@ def _counters() -> Dict:
             "graph_ops.batch_broadcast.backward_calls":
                 graph_ops._BatchBroadcast.backward_calls,
             "graph_conv_cuda.launches": dict(graph_conv_cuda.launches),
-            "chamfer_cuda.launches": dict(chamfer_cuda.launches)}
+            "chamfer_cuda.launches": dict(chamfer_cuda.launches),
+            "unet.label_embeds": UNetLR.label_embeds + UNetHR.label_embeds}
 
 
 def snapshot() -> Dict:
@@ -149,7 +157,7 @@ def snapshot() -> Dict:
     since the last :func:`reset`, in all and within their innermost
     enclosing stage span, and the counters the port keeps where it
     counts (graph-conv calls and backward calls, the per-sample broadcasts'
-    one-hot backward calls, kernel launches)."""
+    one-hot backward calls, kernel launches, the U-Nets' label rows)."""
     spans: Dict[str, Dict] = {}
     by_stage: Dict[str, Dict] = {}
     with _lock:
