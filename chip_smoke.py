@@ -9,10 +9,11 @@ Objaverse widths, decoded to depth 10; data parallelism on the one
 card; shading FID with the stand-in features, dataset preparation from
 meshes and the depth-9 generation), and checks the hand-written
 CUDA kernels they run (the graph conv's K1 forward, K2 column buffer, K3
-input gradient and K5 packed forward; the Chamfer kernel K4):
+input gradient and K5 packed forward; the Chamfer kernel K4; the MPU
+corner gathers' segment-sum backward K6):
 
 1. device: the card's name and power limit; TF32 off for matmul and cuDNN;
-2. build: ``graph_conv.cu`` and ``chamfer.cu`` are compiled from
+2. build: ``graph_conv.cu``, ``chamfer.cu`` and ``mpu_gather.cu`` are compiled from
    ``octfusion_tpu_torch/csrc``, one ``nvcc`` each, both at once;
 3. K1 vs plain: on the graph levels 4-8 of a short warm-up cascade, at
    every (C, C') pair the cascade's graph convs use, the kernel against its
@@ -123,6 +124,14 @@ input gradient and K5 packed forward; the Chamfer kernel K4):
    (levels 6-8 of the encoder and the decoder; C = 11, 31, 37, 38 with
    the node-type one-hot, none a multiple of 4), as phase 6 does; the
    graph's line gives each level's largest CSR and transposed-CSR slot;
+   then K6 (``mpu_gather_cuda.segment_sum``) at each depth 4-8 of that
+   octree with the batch's 2 x 50000 SDF samples as queries (800000
+   corner slots; node 0 takes the misses), C = 4 (the planes) and 3 (the
+   colour VAE's colours): against its plain version
+   (``segment_sum_plain``) and ``index``'s backward within
+   ``TOL_SEGMENT_SUM`` of the largest magnitude, two calls bit for bit,
+   timed with CUDA events beside both (``index``'s as ``library_ms``)
+   and from a profiler trace, with its bytes bound;
 16. one full-width VAE train step (``VAESolver.loss_fn`` and its
    backward) on the card against the CPU at batch 1, all weights
    perturbed with seeded noise, the same injected eps: the loss, every
@@ -137,10 +146,11 @@ input gradient and K5 packed forward; the Chamfer kernel K4):
    ``VAE_TRAIN_STEPS`` (8) steps at batch 2 (65536 surface points and
    ``data.point_sample_num`` SDF samples per shape) on one fixed batch
    with a fixed eps.  No overflow, a finite, falling loss, K1 launches =
-   GraphConv forward calls (checkpoint recomputes included) and K2 = K3
-   launches = graph-conv backward calls; prints the median ms/step after
-   2 warm-up steps split into graph / forward / backward / optimizer, and
-   the peak memory;
+   GraphConv forward calls (checkpoint recomputes included), K2 = K3
+   launches = graph-conv backward calls, and K6 launches = the corner
+   gathers' backward calls = 12 a step (target depths 6-8 over depths
+   4..d); prints the median ms/step after 2 warm-up steps split into
+   graph / forward / backward / optimizer, and the peak memory;
 18. VAE reconstruction (``VAESolver.reconstruct``) of phase 17's 2 shapes
    from its trained weights: the SDF grid at the YAML's 256³ must be
    finite and K1 launches = GraphConv calls; then meshes at 64³ into a
@@ -293,12 +303,13 @@ input gradient and K5 packed forward; the Chamfer kernel K4):
 
 Prints the kernel summary as a JSON line (each kernel's ``launches`` is
 its count over the counted runs of phases 5, 8, 12, 17, 18, 19, 20, 21,
-22, 24 and 25, K4's over phases 10, 19 and 22, the four bf16 entry
+22, 24 and 25, K4's over phases 10, 19 and 22, K6's over phase 17, the
+four bf16 entry
 points' (``*_bf16``) over phase 26's cascades and training run; their
 ``ms`` and the rest sum phase 26's shapes; ``ms``, ``plain_ms``,
 ``bound_ms`` and ``library_ms`` sum the shapes of phases 3, 6, 15, 20,
-21 and 25 (K1), 6, 15, 20 and 21 (K2, K3), 9 (K4), or 11, 20 and 25
-(K5), K1's and K3's ``gemm_ms`` the GEMM-alone yardstick over the same
+21 and 25 (K1), 6, 15, 20 and 21 (K2, K3), 9 (K4), 11, 20 and 25 (K5),
+or 15 (K6, whose ``library_ms`` is ``index``'s backward), K1's and K3's ``gemm_ms`` the GEMM-alone yardstick over the same
 shapes, and K5's ``k1_ms`` is K1 on phases 11's, 20's and 25's shapes;
 ``bound_by`` is the larger of the summed operation and byte times; every
 bound is ``roofline.bound_times``: the operations at
@@ -338,6 +349,7 @@ import torch  # noqa: E402  (after the device pinning above)
 TOL_KERNEL = dict(rtol=1e-4, atol=1e-4)  # fp32, different summation order
 TOL_STEP = dict(rtol=1e-3, atol=1e-3)    # fp32 through ~40 layers
 TOL_GRAD_SCALE = 1e-4   # card vs CPU gradient error / the leaf's max |grad|
+TOL_SEGMENT_SUM = 1e-4  # K6 error / the largest |sum|: fp32, another order
 RESOLUTION = 256        # SDF grid side, as the reference
 TRAIN_STEPS = 12        # phase 8; at least 10, the first 2 are warm-up
 TRAIN_CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -452,13 +464,17 @@ SOURCES = {"graph_conv_fwd": f"{_CSRC}/graph_conv.cu",
            "graph_conv_col": f"{_CSRC}/graph_conv.cu",
            "graph_conv_bwd_dx": f"{_CSRC}/graph_conv.cu",
            "chamfer": f"{_CSRC}/chamfer.cu",
-           "graph_conv_fwd_packed": f"{_CSRC}/graph_conv.cu"}
+           "graph_conv_fwd_packed": f"{_CSRC}/graph_conv.cu",
+           "corner_gather_bwd": f"{_CSRC}/mpu_gather.cu"}
 _PALLAS = "octfusion_tpu/ops/pallas/graph_conv_kernel.py"
 REPLACES = {"graph_conv_fwd": f"{_PALLAS}:41",
             "graph_conv_col": f"{_PALLAS}:80",
             "graph_conv_bwd_dx": f"{_PALLAS}:110",
             "chamfer": "octfusion_tpu/ops/pallas/chamfer_kernel.py:30",
-            "graph_conv_fwd_packed": f"{_PALLAS}:297"}
+            "graph_conv_fwd_packed": f"{_PALLAS}:297",
+            # no Pallas kernel: the JAX gather whose transpose XLA's
+            # scatter-add computes
+            "corner_gather_bwd": "octfusion_tpu/ops/mpu.py:121"}
 # the bf16 entry points (phase 26): the same sources and Pallas kernels,
 # which the JAX package runs on bf16 operands under compute_dtype bfloat16
 BF16_KERNELS = ("graph_conv_fwd", "graph_conv_col", "graph_conv_bwd_dx",
@@ -1109,6 +1125,84 @@ def vae_setup(seed):
     return solver, cfg, batch, eps, g, shapes
 
 
+def check_corner_gather(octree, pos, pt_batch, depths, gen) -> KernelStats:
+    """Phase 15: K6, the MPU corner gathers' segment-sum backward, at each
+    depth of ``depths`` of ``octree`` with the queries ``pos`` and C = 4
+    (the planes) and 3 (the colour VAE's colours): the kernel against its
+    plain version and against ``index``'s backward (``index_put_`` with
+    ``accumulate``, what autograd runs for ``t[idx]``) within
+    ``TOL_SEGMENT_SUM`` of the largest magnitude, two calls bit for bit,
+    timed with CUDA events beside both (``index``'s as the library
+    yardstick) and from a profiler trace (``dev_ms``; a call of ~10 us
+    reads its host overhead by events), and its bytes bound -> its
+    KernelStats."""
+    from octfusion_tpu_torch.ops import mpu, roofline
+    from octfusion_tpu_torch.ops import mpu_gather_cuda as mg
+
+    dev = pos.device
+    stats, dev_sum = KernelStats(), 0.0
+    for dd in depths:
+        corners = mpu.Corners(octree, dd, pos, pt_batch)
+        flat, n = corners.idx_c.reshape(-1), corners.n_nodes
+        m = flat.shape[0]
+        plan = mg.plan(flat, n)
+        runs = plan.offsets.diff()
+        plan_ms = cuda_ms(lambda: mg.plan(flat, n))
+        for c in (4, 3):
+            grad = torch.randn(m, c, device=dev, generator=gen)
+
+            def kern():
+                return mg.segment_sum(grad, plan, n)
+
+            def plain():
+                return mg.segment_sum_plain(grad, plan, n)
+
+            def index():
+                return torch.zeros(n, c, device=dev).index_put_(
+                    (flat,), grad, accumulate=True)
+
+            got, again, ref, lib = kern(), kern(), plain(), index()
+            scale = ref.abs().max().item()
+            err = (got - ref).abs().max().item()
+            err_index = (got - lib).abs().max().item()
+            line = (f"k6 d={dd} nodes={n} slots={m} reached="
+                    f"{int((runs > 0).sum())} node0_share="
+                    f"{int(runs[0]) / m:.4f} longest_run={int(runs.max())} "
+                    f"C={c}")
+            if not torch.equal(got, again):
+                raise AssertionError(f"{line}: two calls differ")
+            if not (scale > 0 and max(err, err_index)
+                    <= TOL_SEGMENT_SUM * scale):
+                raise AssertionError(f"{line}: error {err:.3e} (index "
+                                     f"{err_index:.3e}) of {scale:.3e}")
+            del got, again, ref, lib
+            tk, tp = cuda_ms(kern), cuda_ms(plain)
+            tl = cuda_ms(index, reps=5, warmup=1)
+            try:
+                dk = device_ms(kern)
+            except RuntimeError:     # a trace without device events
+                dk = None
+            cost = roofline.corner_gather_bwd_cost(m, c, n)
+            bound = stats.add(err, tk, tp, "corner_gather_bwd", cost,
+                              library_ms=tl)
+            if dk is not None:
+                dev_sum += dk
+            print(f"{line} max_rel_err={err / scale:.3e} max_rel_err_index="
+                  f"{err_index / scale:.3e} bitwise_repeat=True kernel_ms="
+                  f"{tk:.4f} kernel_dev_ms="
+                  + ("not measured" if dk is None else f"{dk:.4f}")
+                  + f" plain_ms={tp:.4f} index_ms={tl:.4f} plan_ms="
+                  f"{plan_ms:.4f} bound_ms={bound:.4f} share_of_bound="
+                  f"{bound / tk:.3f}" + ("" if dk is None else
+                                        f" share_of_bound_dev="
+                                        f"{bound / dk:.3f}"), flush=True)
+    print(f"k6 phase 15 device sums: kernel_dev_ms={dev_sum:.4f} bound_ms="
+          f"{stats.bound_ms:.4f} share_of_bound_dev="
+          f"{stats.bound_ms / dev_sum if dev_sum else float('nan'):.3f}",
+          flush=True)
+    return stats
+
+
 def check_vae_step(solver, cfg, batch, seed, label="vae_step"):
     """Phases 16 and 21: one full-width VAE train step's loss terms and gradients,
     card vs CPU at batch 1, from the same perturbed weights and eps, both
@@ -1143,9 +1237,13 @@ def check_vae_training(seed):
     """Phases 15-18 on the VAE of ``configs/octfusion_snet_uncond.yaml``
     -> (K1 / K2 / K3 measurements at the VAE's training shapes, the
     launches of the training run (phase 17) and of the reconstruction
-    (phase 18))."""
+    (phase 18)); K6's measurements at the VAE's corner gathers (phase 15)
+    and its launches in the training run (phase 17) among them."""
+    from octfusion_tpu_torch.models.common import flatten_pos
     from octfusion_tpu_torch.nn.modules import GraphConv
     from octfusion_tpu_torch.ops import graph_conv_cuda as k
+    from octfusion_tpu_torch.ops import mpu
+    from octfusion_tpu_torch.ops import mpu_gather_cuda as mg
 
     dev = torch.device("cuda")
     solver, cfg, batch, eps, g, shapes = vae_setup(seed)
@@ -1157,14 +1255,30 @@ def check_vae_training(seed):
                         ("graph_conv_col", "k2 phase 15 (vae training)"),
                         ("graph_conv_bwd_dx", "k3 phase 15 (vae training)")):
         measured[name].summary(label)
+    m = cfg.model
+    k6 = check_corner_gather(g.octree, *flatten_pos(batch["pos"]),
+                             range(m.full_depth, m.depth_out + 1), gen)
+    k6.summary("k6 phase 15 (vae corner gathers)")
     del g
     # ---- 16 -------------------------------------------------------------
     check_vae_step(solver, cfg, batch, seed)
     # ---- 17 -------------------------------------------------------------
+    mg.launches["corner_gather_bwd"] = 0
+    bwd0 = mpu._CornerGather.backward_calls
     train_launches = run_steps("vae train", solver.make_train_step(), batch,
                                VAE_TRAIN_STEPS, True, eps=eps)
+    k6_launches = mg.launches["corner_gather_bwd"]
+    k6_calls = mpu._CornerGather.backward_calls - bwd0
+    # each target depth d blends the corners of depths full_depth..d
+    want = VAE_TRAIN_STEPS * sum(d - m.full_depth + 1 for d in
+                                 range(m.depth_stop, m.depth_out + 1))
+    print(f"vae train k6_launches={k6_launches} corner_gather_backward_"
+          f"calls={k6_calls} (want {want})", flush=True)
+    if not k6_launches == k6_calls == want:
+        raise AssertionError(f"vae train: K6 launches {k6_launches}, "
+                             f"corner-gather backwards {k6_calls}, want "
+                             f"{want}")
     # ---- 18 -------------------------------------------------------------
-    m = cfg.model
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     k.reset_launches()
@@ -1204,6 +1318,8 @@ def check_vae_training(seed):
           + f" obj_bytes={sizes}", flush=True)
     launches = {name: train_launches[name] for name in measured}
     launches["graph_conv_fwd"] += recon_launches["graph_conv_fwd"]
+    measured["corner_gather_bwd"] = k6
+    launches["corner_gather_bwd"] = k6_launches
     return measured, launches
 
 
@@ -3158,7 +3274,8 @@ def main(argv=None):
     from octfusion_tpu_torch.config import Config
     from octfusion_tpu_torch.models.union_solver import UnionSolver
     from octfusion_tpu_torch.nn.modules import GraphConv
-    from octfusion_tpu_torch.ops import chamfer_cuda, graph_conv_cuda
+    from octfusion_tpu_torch.ops import (chamfer_cuda, graph_conv_cuda,
+                                         mpu_gather_cuda)
     from octfusion_tpu_torch.utils import mesh as mesh_utils
     from octfusion_tpu_torch.utils import sdf as sdf_utils
     from octfusion_tpu_torch.utils.device import use_fp32_math
@@ -3173,11 +3290,12 @@ def main(argv=None):
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor() as pool:
         builds = [pool.submit(mod.build) for mod in (graph_conv_cuda,
-                                                     chamfer_cuda)]
+                                                     chamfer_cuda,
+                                                     mpu_gather_cuda)]
         for fut in builds:
             fut.result()
-    print(f"build: graph_conv.cu (K1, K2, K3, K5) and chamfer.cu (K4) "
-          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    print(f"build: graph_conv.cu (K1, K2, K3, K5), chamfer.cu (K4) and "
+          f"mpu_gather.cu (K6) {time.perf_counter() - t0:.2f} s", flush=True)
 
     # ---- 9. K4 vs plain; CD / EMD pairs/s (first: its device times come
     # from profiler traces, which a fresh process takes reliably) ---------
@@ -3294,8 +3412,8 @@ def main(argv=None):
     # ---- 15-18. VAE training and reconstruction -----------------------
     vae_measured, vae_launches = check_vae_training(args.seed)
     for name, stats in vae_measured.items():
-        measured[name].merge(stats)
-        launches[name] += vae_launches[name]
+        measured.setdefault(name, KernelStats()).merge(stats)
+        launches[name] = launches.get(name, 0) + vae_launches[name]
 
     measured["chamfer"] = k4
 

@@ -127,8 +127,8 @@ def geometry_loss(
     octree_out = vae_out["octree_out"]
     output = octree_split_loss(vae_out["logits"], octree_out)
     if spatial_grad == "analytic":
-        cache = {dd: mpu_ops.octree_corner_info(octree_out, dd, pos, pt_batch)
-                 for dd in range(full_depth, depth_out + 1)}
+        cache = mpu_ops.corners_by_depth(octree_out, full_depth, depth_out,
+                                         pos, pt_batch)
     elif spatial_grad != "jvp":
         raise ValueError(f"spatial_grad {spatial_grad!r}")
     for d in range(depth_stop, depth_out + 1):

@@ -14,6 +14,10 @@ corner nodes per depth, normalised by the blended weights.
   trilinear basis (``abs_one``) has derivative sign(x) with sign(0) = +1,
   as the reference's custom gradient.  ``mpu_interp`` blends per-node
   constant values (the colour VAE's colours) with the same weights.
+  Where autograd records a CUDA table, the corner gather is
+  ``_CornerGather``, whose backward is a deterministic segment sum by
+  node (``ops/mpu_gather_cuda``) over a plan that :class:`Corners`
+  builds once per depth; every other call is the plain ``t[idx]``.
 * A regular grid (inference): the corner weights are trilinear
   interpolation weights, so the blend becomes six dense per-node channels
   per depth resampled by three axis-separable lerps (see the JAX module
@@ -25,10 +29,12 @@ from __future__ import annotations
 from typing import Dict
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from ..octree import morton
 from ..octree.octree import Octree
 from ..utils import trace
+from . import mpu_gather_cuda
 
 # corner offsets, x-major
 _CORNERS = ((0, 0, 0), (0, 0, 1), (0, 1, 0), (0, 1, 1),
@@ -102,24 +108,94 @@ def octree_corner_info(octree: Octree, depth: int, pos: torch.Tensor,
     return idx, coordsf * (2.0 / scale), w, valid
 
 
+class _CornerGather(torch.autograd.Function):
+    """``t[idx]``: a depth's node table t [n, C] onto the flat corner slots
+    ``idx`` [M] (N queries x 8).  Its backward is the segment sum of
+    ``mpu_gather_cuda`` over the slots' plan, where ``index``'s backward
+    sorts the M indices at every call and adds each run of equal ones
+    serially.  Only the plan is kept for the backward (built from the
+    octree and the queries, never from parameters); ``jvp`` gathers the
+    tangent, so ``torch.func.jvp`` runs through it."""
+
+    # backward calls since the last reset
+    backward_calls = 0
+
+    @staticmethod
+    def forward(t, idx, plan):
+        return t[idx]
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        t, idx, plan = inputs
+        ctx.plan, ctx.n = plan, t.shape[0]
+        ctx.save_for_forward(idx)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, grad):
+        _CornerGather.backward_calls += 1
+        return mpu_gather_cuda.segment_sum(
+            grad.contiguous(), ctx.plan, ctx.n), None, None
+
+    @staticmethod
+    def jvp(ctx, t_tangent, idx_tangent, plan_tangent):
+        (idx,) = ctx.saved_tensors
+        return t_tangent[idx]
+
+
+class Corners:
+    """One depth's corner lookups (:func:`octree_corner_info`:
+    ``coordsf``, ``w``, ``valid``, and ``idx_c`` [N, 8], each slot's node
+    clamped into the table), and the slots' plan for the gather's
+    backward, built at the first gather that needs one and reused by every
+    later gather through this object (each target depth of
+    ``geometry_loss``)."""
+
+    def __init__(self, octree: Octree, depth: int, pos: torch.Tensor,
+                 pt_batch: torch.Tensor, table=None):
+        idx, self.coordsf, self.w, self.valid = octree_corner_info(
+            octree, depth, pos, pt_batch, table=table)
+        self.n_nodes = octree.spec.node_caps[depth]
+        self.idx_c = idx.clamp(0, self.n_nodes - 1)
+        self._plan = None
+
+    def gather(self, t: torch.Tensor) -> torch.Tensor:
+        """``t[idx_c]`` [N * 8, C] of a table t [n_nodes, C]: through
+        ``_CornerGather`` where autograd records a CUDA table (its kernel
+        takes fp32 and raises on another dtype), the plain gather
+        everywhere else (the CPU, generation, evaluation)."""
+        flat = self.idx_c.reshape(-1)
+        if t.is_cuda and t.requires_grad and torch.is_grad_enabled():
+            if self._plan is None:
+                self._plan = mpu_gather_cuda.plan(flat, self.n_nodes)
+            return _CornerGather.apply(t, flat, self._plan)
+        return t[flat]
+
+
+def corners_by_depth(octree: Octree, full_depth: int, depth_end: int,
+                     pos: torch.Tensor, pt_batch: torch.Tensor):
+    """{dd: :class:`Corners`} for dd in full_depth..depth_end, shared by
+    the evaluations of every target depth."""
+    return {dd: Corners(octree, dd, pos, pt_batch)
+            for dd in range(full_depth, depth_end + 1)}
+
+
 def _level_terms(octree, dd, depth_end, pos, pt_batch, reg_levels,
                  corner_cache, tables):
     """One depth's corners: (coordsf, w, use mask, gathered planes
     [N, 8, 4], plane values [N, 8]).  Corners at depths below
     ``depth_end`` count only on octree leaves."""
     if corner_cache is not None and dd in corner_cache:
-        idx, coordsf, w, valid = corner_cache[dd]
+        c = corner_cache[dd]
     else:
-        idx, coordsf, w, valid = octree_corner_info(
-            octree, dd, pos, pt_batch,
-            table=None if tables is None else tables.get(dd))
-    idx_c = idx.clamp(0, octree.spec.node_caps[dd] - 1)
-    use = valid if dd == depth_end else (
-        valid & (octree.child[dd][idx_c] < 0))
+        c = Corners(octree, dd, pos, pt_batch,
+                    table=None if tables is None else tables.get(dd))
+    use = c.valid if dd == depth_end else (
+        c.valid & (octree.child[dd][c.idx_c] < 0))
     with trace.span("octf.gather.mpu"):
-        reg = reg_levels[dd][idx_c.reshape(-1)].reshape(pos.shape[0], 8, 4)
-    fval = torch.sum(reg[..., :3] * coordsf, dim=-1) + reg[..., 3]
-    return coordsf, w, use, valid, reg, fval
+        reg = c.gather(reg_levels[dd]).reshape(pos.shape[0], 8, 4)
+    fval = torch.sum(reg[..., :3] * c.coordsf, dim=-1) + reg[..., 3]
+    return c.coordsf, c.w, use, c.valid, reg, fval
 
 
 def mpu_eval(pos: torch.Tensor, pt_batch: torch.Tensor,
@@ -194,8 +270,7 @@ def neural_mpu(pos: torch.Tensor, pt_batch: torch.Tensor,
                full_depth: int, depth_stop: int, depth_end: int):
     """Every target depth: {d: (sdf, covered)} for d in
     depth_stop..depth_end, the corner lookups shared across depths."""
-    cache = {dd: octree_corner_info(octree, dd, pos, pt_batch)
-             for dd in range(full_depth, depth_end + 1)}
+    cache = corners_by_depth(octree, full_depth, depth_end, pos, pt_batch)
     return {d: mpu_eval(pos, pt_batch, reg_voxs[d], octree, full_depth, d,
                         corner_cache=cache)
             for d in range(depth_stop, depth_end + 1)}
@@ -213,13 +288,12 @@ def mpu_interp(pos: torch.Tensor, pt_batch: torch.Tensor,
     num = pos.new_zeros(n, c)
     den = pos.new_zeros(n)
     for dd in range(full_depth, depth_end + 1):
-        idx, _, w, valid = octree_corner_info(octree, dd, pos, pt_batch)
-        idx_c = idx.clamp(0, octree.spec.node_caps[dd] - 1)
-        use = valid if dd == depth_end else (
-            valid & (octree.child[dd][idx_c] < 0))
+        cs = Corners(octree, dd, pos, pt_batch)
+        use = cs.valid if dd == depth_end else (
+            cs.valid & (octree.child[dd][cs.idx_c] < 0))
         with trace.span("octf.gather.mpu"):
-            vals = val_levels[dd][idx_c.reshape(-1)].reshape(n, 8, c)
-        wm = torch.where(use, w, torch.zeros_like(w))
+            vals = cs.gather(val_levels[dd]).reshape(n, 8, c)
+        wm = torch.where(use, cs.w, torch.zeros_like(cs.w))
         num = num + torch.sum(wm[..., None] * vals, dim=1)
         den = den + torch.sum(wm, dim=-1)
     return num / (den[:, None] + 1e-8)

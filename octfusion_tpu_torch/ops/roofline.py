@@ -9,7 +9,7 @@ function's operations once at this rate, so no share can pass 100%),
 989 TFLOP/s of dense bf16 on the tensor cores (the bf16 entry points of
 K1, K3 and K5, ``*_bf16``: one bf16 product per product), 67 TFLOP/s in
 fp32 outside the tensor cores (K2, whose sums stay fp32 in either
-dtype), and 3.35 TB/s of HBM.  The bf16 entry points move 2-byte
+dtype, and K6's adds), and 3.35 TB/s of HBM.  The bf16 entry points move 2-byte
 operands (``elem`` = :data:`BF16`); the CSR stays 4-byte.
 K4 computes its distances on the tensor cores and keeps its minima on the
 integer units, so its operations' time (:func:`bound_times`) is the
@@ -45,7 +45,8 @@ FLOPS_RATE = {"graph_conv_fwd": TF32_FLOPS, "graph_conv_bwd_dx": TF32_FLOPS,
               "graph_conv_fwd_bf16": BF16_FLOPS,
               "graph_conv_bwd_dx_bf16": BF16_FLOPS,
               "graph_conv_fwd_packed_bf16": BF16_FLOPS,
-              "graph_conv_col_bf16": FP32_FLOPS}
+              "graph_conv_col_bf16": FP32_FLOPS,
+              "corner_gather_bwd": FP32_FLOPS}
 
 
 def times_ms(flops: float, nbytes: float, flops_rate: float = FP32_FLOPS):
@@ -107,3 +108,14 @@ def chamfer_cost(b: int, n: int, m: int):
     nbytes = b * (n + m) * 3 * F32 + b * (n + m) * F32
     return flops, nbytes
 
+
+def corner_gather_bwd_cost(m: int, c: int, n_nodes: int):
+    """K6, the MPU corner gathers' segment sum ``out [n_nodes, C]`` of
+    ``grad [M, C]`` over the plan of M slots: one add per element of
+    grad; grad and ``perm`` read, the plan's ``offsets`` and
+    ``chunk_ptr`` read, out written (the per-chunk partials, a few bytes
+    a node, are the kernel's own) -> (flops, bytes)."""
+    flops = m * c
+    nbytes = m * c * F32 + m * I32 + 2 * (n_nodes + 1) * I32 \
+        + n_nodes * c * F32
+    return flops, nbytes

@@ -37,8 +37,10 @@ Names are ``octf.<layer>.<what>``:
   U-Net's body as the hr U-Net's middle, once an hr call.
 
 :func:`snapshot` returns the recorded spans with the counters the port
-keeps where it counts (graph-conv calls and backward calls, kernel
-launches, ``unet.label_embeds``: the class rows the U-Nets' time
+keeps where it counts (graph-conv calls and backward calls,
+``mpu.corner_gather.backward_calls``: backwards through the MPU's corner
+gathers' segment sum, 12 a snet VAE step, kernel launches,
+``unet.label_embeds``: the class rows the U-Nets' time
 embeddings added, B for each U-Net that embeds a label, so an hr call
 counts B in the hr U-Net and B again in its lr middle), read there;
 :func:`reset` clears the spans only.
@@ -137,7 +139,8 @@ def _counters() -> Dict:
     from ..nn.modules import GraphConv
     from ..nn.unet_hr import UNetHR
     from ..nn.unet_lr import UNetLR
-    from ..ops import chamfer_cuda, graph_conv_cuda, graph_ops
+    from ..ops import (chamfer_cuda, graph_conv_cuda, graph_ops, mpu,
+                       mpu_gather_cuda)
 
     fn = graph_conv_cuda.GraphConvFunction
     return {"graph_conv.calls": GraphConv.calls,
@@ -146,8 +149,11 @@ def _counters() -> Dict:
             "graph_conv.backward_calls_bf16": fn.backward_calls_bf16,
             "graph_ops.batch_broadcast.backward_calls":
                 graph_ops._BatchBroadcast.backward_calls,
+            "mpu.corner_gather.backward_calls":
+                mpu._CornerGather.backward_calls,
             "graph_conv_cuda.launches": dict(graph_conv_cuda.launches),
             "chamfer_cuda.launches": dict(chamfer_cuda.launches),
+            "mpu_gather_cuda.launches": dict(mpu_gather_cuda.launches),
             "unet.label_embeds": UNetLR.label_embeds + UNetHR.label_embeds}
 
 
@@ -157,7 +163,8 @@ def snapshot() -> Dict:
     since the last :func:`reset`, in all and within their innermost
     enclosing stage span, and the counters the port keeps where it
     counts (graph-conv calls and backward calls, the per-sample broadcasts'
-    one-hot backward calls, kernel launches, the U-Nets' label rows)."""
+    one-hot backward calls, the MPU corner gathers' segment-sum backward
+    calls, kernel launches, the U-Nets' label rows)."""
     spans: Dict[str, Dict] = {}
     by_stage: Dict[str, Dict] = {}
     with _lock:

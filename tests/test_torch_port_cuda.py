@@ -4,7 +4,9 @@ gradient and K5 packed forward (all four also on the edge-case level of
 ``test_torch_port_csr_cases`` and at ragged widths; K5 with its autograd
 guard; K2 also on an x that is not 16-byte aligned), the
 differentiable graph conv on the card, the per-sample broadcasts'
-one-hot GEMM backward against ``index``'s, the Chamfer kernel K4 with the
+one-hot GEMM backward against ``index``'s, the MPU corner gathers'
+segment-sum backward against ``index``'s at the snet VAE's shapes (and
+the ``jvp`` VAE step against the analytic one), the Chamfer kernel K4 with the
 evaluation's tile loop, and the solver's fp32 precision (the lr denoise
 step, card against CPU); K1 / K2 / K3 at the VAE's odd input widths on
 its depth-8 training graph; the VAE and lr train steps card against CPU
@@ -25,7 +27,7 @@ import torch
 
 import test_torch_port_csr_cases as csr_cases
 from octfusion_tpu_torch.config import Config, load_config
-from octfusion_tpu_torch.models.common import batch_to_graph
+from octfusion_tpu_torch.models.common import batch_to_graph, flatten_pos
 from octfusion_tpu_torch.models.union_solver import UnionSolver
 from octfusion_tpu_torch.models.vae_solver import VAESolver
 from octfusion_tpu_torch.octree.dual_graph import (build_dual_graph,
@@ -33,8 +35,10 @@ from octfusion_tpu_torch.octree.dual_graph import (build_dual_graph,
 from octfusion_tpu_torch.octree.octree import OctreeSpec
 from octfusion_tpu_torch.octree.split_codec import split2octree_small
 from octfusion_tpu_torch.metrics import distances
-from octfusion_tpu_torch.ops import chamfer_cuda, graph_conv_cuda, graph_ops
-from octfusion_tpu_torch.utils.shapes import lumpy_sphere_batch
+from octfusion_tpu_torch.ops import (chamfer_cuda, graph_conv_cuda, graph_ops,
+                                     mpu, mpu_gather_cuda)
+from octfusion_tpu_torch.utils.shapes import (lumpy_sphere_batch,
+                                              lumpy_sphere_sdf_samples)
 
 # fp32 on both sides, different summation order: rtol = atol = 1e-4
 TOL = 1e-4
@@ -645,6 +649,95 @@ def test_color_vae_train_step_card_matches_cpu(cuda):
         (card, cpu), lambda s: s.vae,
         lambda s: s.loss_fn({k: v.to(s.device) for k, v in batch.items()},
                             eps=eps.to(s.device)))
+
+
+# ----------------------------------------------------------------------
+# the MPU corner gathers' segment-sum backward
+# ----------------------------------------------------------------------
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [4, 3])
+def test_corner_gather_backward_matches_index(cuda, vae_graph, c):
+    """``_CornerGather``'s segment-sum backward at the snet VAE's shapes:
+    the batch-2 depth-8 octree of ``vae_graph``, 100000 queries (the
+    shapes' 50000 SDF samples each, half of them uniform in the cube, so
+    node 0 takes the misses: 52-81% of the slots at depths 5-8, and nodes
+    that no query reaches), every depth 4-8, C = 4
+    (planes) and C = 3 (``mpu_interp``'s colours), against PyTorch's own
+    ``index`` autograd of the same gather: equal within fp32 rounding, two
+    runs equal bit for bit, a NaN in a masked slot reaching its node (node
+    0 for a missing corner) on both,
+    one backward and one launch counted per call."""
+    octree = vae_graph.octree
+    pos, pb = flatten_pos(lumpy_sphere_sdf_samples(
+        2, 50000, 0, points_per_shape=65536, device=cuda)["pos"])
+    gen = torch.Generator(device=cuda).manual_seed(21)
+    n0 = (mpu._CornerGather.backward_calls,
+          mpu_gather_cuda.launches["corner_gather_bwd"])
+    for dd in range(4, 9):
+        corners = mpu.Corners(octree, dd, pos, pb)
+        flat = corners.idx_c.reshape(-1)
+        counts = torch.bincount(flat, minlength=corners.n_nodes)
+        if dd > 4:      # depth 4 is full: every node is some query's corner
+            assert int((counts == 0).sum()) > 0, dd
+        if dd == 8:     # node 0 holds most slots
+            assert int(counts.argmax()) == 0
+            assert int(counts[0]) > flat.shape[0] // 2
+        table = torch.randn(corners.n_nodes, c, device=cuda, generator=gen)
+        ct = torch.randn(flat.shape[0], c, device=cuda, generator=gen)
+
+        def grad(gather, ct=ct):
+            t = table.clone().requires_grad_()
+            (gather(t) * ct).sum().backward()
+            return t.grad
+
+        got, again = grad(corners.gather), grad(corners.gather)
+        assert torch.equal(got, again), dd
+        ref = grad(lambda t: t[flat])
+        torch.testing.assert_close(got, ref, rtol=TOL,
+                                   atol=TOL * ref.abs().max().item(),
+                                   msg=f"depth {dd}")
+        # a NaN in a masked slot: a missing corner's (clamped to node 0)
+        # where depth 4, which is full, has only out-of-bounds ones
+        masked = ~corners.valid.reshape(-1)
+        miss = torch.nonzero(masked & (flat == 0))[:, 0]
+        slot = int(miss[0] if dd > 4 else torch.nonzero(masked)[0, 0])
+        node = int(flat[slot])
+        ct_nan = ct.clone()
+        ct_nan[slot, 1] = float("nan")
+        for g in (grad(corners.gather, ct_nan), grad(lambda t: t[flat],
+                                                     ct_nan)):
+            assert torch.isnan(g[node, 1]), dd
+            assert int(torch.isnan(g).sum()) == 1, dd
+    assert (mpu._CornerGather.backward_calls - n0[0],
+            mpu_gather_cuda.launches["corner_gather_bwd"] - n0[1]) == (15, 15)
+
+
+@pytest.mark.cuda
+def test_vae_train_step_jvp_matches_analytic_on_the_card(cuda):
+    """One VAE step on the card with ``spatial_grad="jvp"`` (three
+    ``torch.func.jvp`` passes, through ``_CornerGather``'s ``jvp`` rule)
+    against ``"analytic"``: every loss term and gradient as the card and
+    CPU steps agree; 5 corner-gather backwards an analytic step of the tiny
+    configuration (target depths 3-4 over depths 2-4), 20 a jvp step."""
+    import dataclasses
+
+    cfg = _tiny_config()
+    base = _perturbed(VAESolver(cfg, device="cpu").vae, 1)
+    solvers = []
+    for spatial_grad in ("analytic", "jvp"):
+        s = VAESolver(dataclasses.replace(cfg, loss=dataclasses.replace(
+            cfg.loss, spatial_grad=spatial_grad)))
+        s.vae.load_state_dict(base.state_dict())
+        solvers.append(s)
+    batch = lumpy_sphere_batch(2, 2048, 256, seed=2)
+    eps = torch.randn(solvers[0].code_shape(2),
+                      generator=torch.Generator().manual_seed(3))
+    n0 = mpu._CornerGather.backward_calls
+    _step_card_vs_cpu(
+        solvers, lambda s: s.vae,
+        lambda s: s.loss_fn({k: v.to(s.device) for k, v in batch.items()},
+                            eps=eps.to(s.device)))
+    assert mpu._CornerGather.backward_calls - n0 == 25
 
 
 @pytest.mark.cuda

@@ -273,6 +273,23 @@ def test_roofline_bounds():
     assert bytes_ms == pytest.approx(0.0050082, rel=1e-4)
 
 
+def test_corner_gather_bwd_bound_is_its_bytes():
+    """K6 at the snet VAE's depth 8, C = 4: 800000 slots into 262144
+    nodes; each slot's 16-byte row and 4-byte ``perm`` entry read, the two
+    int32 tables of 262145 entries read, 262144 rows of 16 bytes written;
+    its 3.2 MFLOP of adds at the fp32 rate take a fiftieth of that."""
+    rate = roofline.FLOPS_RATE["corner_gather_bwd"]
+    assert rate == roofline.FP32_FLOPS
+    flops, nbytes = roofline.corner_gather_bwd_cost(800_000, 4, 262_144)
+    assert flops == 3_200_000
+    assert nbytes == 800_000 * 20 + 8 * 262_145 + 16 * 262_144 == 22_291_464
+    ops_ms, bytes_ms = roofline.bound_times("corner_gather_bwd", flops,
+                                            nbytes)
+    assert bytes_ms == pytest.approx(0.0066542, rel=1e-4)
+    assert ops_ms == pytest.approx(0.0000478, rel=1e-2)
+    assert bytes_ms > 50 * ops_ms
+
+
 def test_graph_conv_gemm_bounds_use_the_tf32_rate():
     """K1 and K3 run their GEMMs on the tensor cores (3xTF32): their bounds
     take the dense TF32 rate, the function's operations counted once, as

@@ -15,7 +15,16 @@ JAX package's, on a batch-2 octree of the tiny configuration's depths
   port's three ``torch.func.jvp`` passes and against JAX, every term and
   the gradient in every plane array (1e-4 relative and absolute: a sum
   over ~10^3 corner terms);
-* ``octree_split_loss`` (1e-6)."""
+* ``octree_split_loss`` (1e-6);
+* the corner gather's plan (``mpu_gather_cuda.plan``): each node's slots
+  grouped, ascending, with its chunk table; ``_CornerGather`` called
+  directly with the kernel's plain version in its backward (against
+  ``index``'s, a NaN included, and its ``jvp``), exactly; the kernel's
+  wrapper refusing a CPU tensor; and off the card (the CPU, with autograd
+  on and under ``no_grad``) the plain gather: no corner-gather backward,
+  no launch, ``t[idx]``'s own autograd node, and ``geometry_loss`` and
+  ``mpu_interp`` equal bit for bit to a run whose gathers are all the
+  plain ``t[idx]``."""
 
 import numpy as np
 import pytest
@@ -30,6 +39,7 @@ from octfusion_tpu.ops import mpu as jmpu
 from octfusion_tpu_torch.nn import losses as tlosses
 from octfusion_tpu_torch.octree.morton import INVALID_KEY
 from octfusion_tpu_torch.ops import mpu as tmpu
+from octfusion_tpu_torch.ops import mpu_gather_cuda as mg
 
 from test_torch_port_helpers import np_, port_octree
 
@@ -278,3 +288,166 @@ def test_octree_split_loss_matches_jax(octrees):
     for k in want:
         np.testing.assert_allclose(np_(got[k]), np_(want[k]), rtol=1e-6,
                                    atol=1e-6, err_msg=k)
+
+
+# ----------------------------------------------------------------------
+# the corner gather's plan and its dispatch off the card
+# ----------------------------------------------------------------------
+def _plan_case(case, octrees):
+    """(flat node indices, n_nodes): the fixture octree's depth-4 corners
+    of the test queries (misses and out-of-bounds corners clamped to node
+    0), or a synthetic depth whose node 0 takes 3000 of 5000 slots
+    (several of the kernel's chunks) and whose nodes 5-9 no slot reaches."""
+    if case == "octree":
+        _, to = octrees
+        pos, pb = _queries(seed=10)
+        c = tmpu.Corners(to, DEPTH, torch.tensor(pos),
+                         torch.tensor(pb.astype(np.int64)))
+        return c.idx_c.reshape(-1), c.n_nodes
+    gen = torch.Generator().manual_seed(11)
+    idx = torch.randint(10, 40, (5000,), generator=gen)
+    idx[torch.randperm(5000, generator=gen)[:3000]] = 0
+    idx[:4] = torch.arange(1, 5)
+    return idx, 40
+
+
+@pytest.mark.parametrize("case", ["octree", "long_run"])
+def test_corner_plan_is_a_stable_grouping(octrees, case):
+    """``mpu_gather_cuda.plan``: each node's slots, in ascending order, at
+    ``perm[offsets[n]:offsets[n + 1]]``; run lengths equal to the per-node
+    counts; ``chunk_ptr`` the prefix sum of ceil(run / CHUNK)."""
+    idx, n = _plan_case(case, octrees)
+    p = mg.plan(idx, n)
+    assert (p.perm.dtype, p.offsets.dtype, p.chunk_ptr.dtype) == (
+        torch.int32,) * 3
+    counts = torch.bincount(idx, minlength=n)
+    assert torch.equal(p.offsets.diff().long(), counts)
+    assert int(p.offsets[0]) == 0 and int(p.offsets[-1]) == idx.shape[0]
+    for node in range(n):
+        run = p.perm[p.offsets[node]:p.offsets[node + 1]].long()
+        assert torch.equal(run, torch.nonzero(idx == node)[:, 0]), node
+    chunks = (counts + mg.CHUNK - 1) // mg.CHUNK
+    assert torch.equal(p.chunk_ptr.long(),
+                       torch.cat([torch.zeros(1, dtype=torch.long),
+                                  chunks.cumsum(0)]))
+    if case == "long_run":
+        assert int(chunks[0]) > 1 and int(counts[5:10].sum()) == 0
+
+
+def test_corner_gather_rules_match_index(octrees, monkeypatch):
+    """``_CornerGather`` called directly on the CPU, the kernel's plain
+    version (``segment_sum_plain``) in its backward: its value, its
+    gradient (against ``index``'s) and its ``jvp`` under
+    ``torch.func.jvp``, exactly; one backward counted."""
+    monkeypatch.setattr(mg, "segment_sum", mg.segment_sum_plain)
+    idx, n = _plan_case("long_run", octrees)
+    gen = torch.Generator().manual_seed(12)
+    t = torch.randn(n, 4, generator=gen, requires_grad=True)
+    ct = torch.randn(idx.shape[0], 4, generator=gen)
+    ct[7, 2] = float("nan")
+    p = mg.plan(idx, n)
+    n0 = tmpu._CornerGather.backward_calls
+    out = tmpu._CornerGather.apply(t, idx, p)
+    assert torch.equal(out, t[idx])
+    (out * ct).sum().backward()
+    assert tmpu._CornerGather.backward_calls == n0 + 1
+    want = torch.zeros(n, 4).index_add_(0, idx, ct)
+    torch.testing.assert_close(t.grad, want, rtol=0, atol=0, equal_nan=True)
+    assert torch.isnan(t.grad[idx[7], 2])
+    tangent = torch.randn(n, 4, generator=gen)
+    _, got = torch.func.jvp(lambda x: tmpu._CornerGather.apply(x, idx, p),
+                            (t.detach(),), (tangent,))
+    assert torch.equal(got, tangent[idx])
+
+
+def test_segment_sum_refuses_a_cpu_tensor(octrees):
+    """The kernel's wrapper runs on the card only: a CPU gradient raises
+    (``Corners.gather`` never sends one there)."""
+    idx, n = _plan_case("long_run", octrees)
+    with pytest.raises(ValueError, match="CUDA"):
+        mg.segment_sum(torch.zeros(idx.shape[0], 4), mg.plan(idx, n), n)
+
+
+def _autograd_nodes(root):
+    """The class names of every node of the autograd graph under
+    ``root``."""
+    seen, todo, names = set(), [root], set()
+    while todo:
+        fn = todo.pop()
+        if fn is None or fn in seen:
+            continue
+        seen.add(fn)
+        names.add(type(fn).__name__)
+        todo.extend(f for f, _ in fn.next_functions)
+    return names
+
+
+@pytest.mark.parametrize("grad_mode", ["grad", "no_grad"])
+def test_corner_gather_off_the_card_is_the_plain_gather(octrees, grad_mode,
+                                                        monkeypatch):
+    """On the CPU, with autograd recording and under ``no_grad``, the MPU's
+    corner gathers take the plain ``t[idx]``: each ``Corners.gather`` is
+    ``t[idx_c]`` with ``index``'s own backward node, no
+    ``_CornerGather`` node in the loss's graph, no corner-gather backward
+    and no kernel launch; ``geometry_loss`` (every term and every plane
+    gradient) and ``mpu_interp`` equal bit for bit a run in which every
+    gather is replaced by the plain ``t[idx_c]``."""
+    jo, to = octrees
+    pos, pb = _queries(seed=13)
+    rng = np.random.RandomState(14)
+    out = _vae_out(rng, jo)
+    sdf_gt, grad_gt = _sdf_gt(rng, pos.shape[0], "sdf_reg_loss")
+    cols = {dd: rng.normal(size=(jo.spec.node_caps[dd], 3)).astype(np.float32)
+            for dd in range(FD, DEPTH + 1)}
+    args = [torch.tensor(a) for a in (pos, pb.astype(np.int64), sdf_gt,
+                                      grad_gt)]
+    track = grad_mode == "grad"
+    n0 = (tmpu._CornerGather.backward_calls,
+          mg.launches["corner_gather_bwd"])
+
+    for dd in range(FD, DEPTH + 1):
+        c = tmpu.Corners(to, dd, args[0], args[1])
+        t = torch.tensor(cols[dd], requires_grad=True)
+        with torch.set_grad_enabled(track):
+            got = c.gather(t)
+        assert torch.equal(got, t.detach()[c.idx_c.reshape(-1)]), dd
+        assert (type(got.grad_fn).__name__ if track else got.grad_fn) == (
+            "IndexBackward0" if track else None), dd
+
+    def run():
+        voxs = {d: {dd: torch.tensor(r, requires_grad=track)
+                    for dd, r in v.items()}
+                for d, v in out["reg_voxs"].items()}
+        vals = {dd: torch.tensor(v, requires_grad=track)
+                for dd, v in cols.items()}
+        vae_out = {"logits": {d: torch.tensor(v)
+                              for d, v in out["logits"].items()},
+                   "reg_voxs": voxs, "octree_out": to,
+                   "kl_loss": torch.tensor(out["kl_loss"])}
+        with torch.set_grad_enabled(track):
+            ld = tlosses.geometry_loss(vae_out, *args, FD, DS, DEPTH)
+            color = tmpu.mpu_interp(args[0], args[1], vals, to, FD, DEPTH)
+            total = ld["loss"] + color.square().sum()
+            nodes = _autograd_nodes(total.grad_fn)
+            if track:
+                total.backward()
+        grads = [r.grad for v in voxs.values() for r in v.values()] + [
+            v.grad for v in vals.values()]
+        return ld, color, grads, nodes
+
+    got = run()
+    assert (tmpu._CornerGather.backward_calls,
+            mg.launches["corner_gather_bwd"]) == n0
+    assert "_CornerGatherBackward" not in got[3]
+    assert ("IndexBackward0" in got[3]) == track
+    monkeypatch.setattr(tmpu.Corners, "gather",
+                        lambda self, t: t[self.idx_c.reshape(-1)])
+    want = run()
+    assert sorted(got[0]) == sorted(want[0])
+    for k in want[0]:
+        assert torch.equal(got[0][k], want[0][k]), k
+    assert torch.equal(got[1], want[1])
+    for g, w in zip(got[2], want[2]):
+        assert (g is None) == (w is None) == (not track)
+        if w is not None:
+            assert torch.equal(g, w)
